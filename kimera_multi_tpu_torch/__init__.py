@@ -1,0 +1,27 @@
+"""kimera_multi_tpu_torch — the PyTorch/CUDA port of kimera_multi_tpu.
+
+Same sub-packages and function names as the JAX package, so the
+counterpart of a module is found at once; PyTorch idiom inside: plain
+functions on tensors with the candidate (batch) axis written out, an
+explicit `device`, explicit keys. Nothing here imports jax or the JAX
+package.
+
+Layer map (what is ported so far):
+  core/      device selection, threefry RNG policy, SE(3) helpers
+  kernels/   Hamming 2-NN matcher, sample gathers, hypothesis scoring,
+             SoA minimal solvers, batched RANSAC; CUDA C++ under csrc/
+  frontend/  FrontendConfig, make_verifier (loop-closure verification)
+  io/        synthetic keyframe stores and candidate pairs (numpy)
+  convert    state handed over from the JAX package as numpy
+"""
+
+__version__ = "0.1.0"
+
+# Precision policy: the geometry is written in f32 and must run in f32 (the
+# JAX package runs every matmul at HIGHEST precision; the squared-Sampson
+# inlier threshold is 1e-6, far below what TF32's 10-bit mantissa resolves).
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+assert _torch.backends.cuda.matmul.allow_tf32 is False

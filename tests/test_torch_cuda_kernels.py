@@ -1,0 +1,94 @@
+"""The five CUDA kernels of the port against their plain PyTorch versions,
+on the card. These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+Run them on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q
+
+Tolerance: none. Matcher and gathers are integer / copy operations; the
+scoring kernels are built without FMA contraction and repeat the plain
+versions' operation order, so counts are equal. Shapes are ragged on
+purpose (K not a multiple of 32, H not a multiple of the block's
+hypothesis tile, Kq != Kt)."""
+
+import numpy as np
+import pytest
+import torch
+
+from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
+from kimera_multi_tpu_torch.kernels import _build, gather, hamming, score
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("Kq,Kt", [(70, 99), (704, 704), (33, 1100)])
+def test_pair_top2(dev, Kq, Kt):
+    rs = np.random.default_rng(0)
+    C = 5
+    dt = rs.integers(0, 256, (C, Kt, 32), dtype=np.uint8)
+    dt[:, 1::2] = dt[:, 0:Kt - 1:2]  # equal targets: ties
+    dq = dt[:, rs.integers(0, Kt, Kq)].copy()
+    dq[:, :, 3] ^= 5
+    vt = rs.uniform(size=(C, Kt)) < 0.7
+    vt[0] = False
+    vt[1] = False
+    vt[1, Kt - 1] = True
+    args = [torch.from_numpy(x).to(dev) for x in (dq, dt, vt)]
+    n0 = _build.launches["pair_top2"]
+    got = hamming._pair_top2(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["pair_top2"] == n0 + 1
+    for g, r in zip(got, hamming._pair_top2_ref(*args)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("k,K,H", [(3, 75, 500), (8, 704, 37)])
+def test_gathers(dev, k, K, H):
+    rs = np.random.default_rng(1)
+    C = 4
+    data = torch.from_numpy(rs.normal(size=(C, 3, K)).astype(np.float32))
+    picks = torch.from_numpy(rs.integers(0, K, (C, H, k)).astype(np.int32))
+    order = torch.from_numpy(np.stack(
+        [rs.permutation(K) for _ in range(C)]).astype(np.int32))
+    inv = torch.argsort(order, dim=1).to(torch.int32)
+    data, picks, order, inv = (x.to(dev) for x in (data, picks, order, inv))
+    got = gather.sample_gather_perm_t(data, picks, order, inv)
+    assert torch.equal(got, gather.sample_gather_perm_t_ref(data, picks,
+                                                            order))
+    idx = torch.from_numpy(rs.integers(0, K, (C, K + 5)).astype(np.int32))
+    idx[0, :3] = torch.tensor([-4, K, K + 100])  # clamped, not read outside
+    idx = idx.to(dev)
+    assert torch.equal(gather.permute_cols(data, idx),
+                       gather.permute_cols_ref(data, idx))
+    with pytest.raises(TypeError):
+        gather.permute_cols(data, idx.long())
+
+
+@pytest.mark.parametrize("K,H", [(75, 37), (704, 500), (1100, 33)])
+def test_counts(dev, K, H):
+    rs = np.random.default_rng(2)
+    C = 4
+    p = rs.uniform(-4, 4, (C, 3, K)).astype(np.float32)
+    q = rs.uniform(-4, 4, (C, 3, K)).astype(np.float32)
+    valid = rs.uniform(size=(C, K)) < 0.8
+    R = _so3_exp_np(rs.normal(0, 0.6, (C, H, 3))).astype(np.float32)
+    t = rs.uniform(-1, 1, (C, H, 3)).astype(np.float32)
+    E = rs.normal(size=(C, H, 3, 3)).astype(np.float32)
+    f1 = p / np.linalg.norm(p, axis=1, keepdims=True)
+    f2 = q / np.linalg.norm(q, axis=1, keepdims=True)
+    R, t, E, p, q, f1, f2, valid = (torch.from_numpy(x).to(dev) for x in
+                                    (R, t, E, p, q, f1, f2, valid))
+    # thresholds in the thick of the residual distribution, so thousands
+    # of residuals sit near them
+    assert torch.equal(score.rigid_counts(R, t, p, q, valid, 6.0),
+                       score.rigid_counts_ref(R, t, p, q, valid, 6.0))
+    assert torch.equal(score.essential_counts(E, f1, f2, valid, 0.05),
+                       score.essential_counts_ref(E, f1, f2, valid, 0.05))
+    with pytest.raises(ValueError):
+        score.rigid_counts(R.transpose(-1, -2), t, p, q, valid, 6.0)

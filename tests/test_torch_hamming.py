@@ -1,0 +1,112 @@
+"""The port's descriptor matcher against the JAX package's, on shared numpy
+inputs: the vmapped XLA path (`knn2_lowe_match`) and the Pallas pair kernel
+run in interpret mode. On the CPU the port takes the plain version of its
+CUDA kernel. Tolerance: none — match indices and distances are integers
+and must be equal."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kimera_multi_tpu.kernels import hamming as jh
+from kimera_multi_tpu_torch.kernels import hamming as th
+
+
+def _pairs(case, C=3, Kq=70, Kt=96, seed=0):
+    """Descriptor pairs with true matches (3 flipped bits), clutter, and
+    the validity pattern named by `case`. Kq != Kt, neither a multiple of
+    128."""
+    rs = np.random.default_rng(seed)
+    dt = rs.integers(0, 256, (C, Kt, 32), dtype=np.uint8)
+    src = rs.integers(0, Kt, (C, Kq))
+    dq = np.take_along_axis(dt, src[:, :, None], axis=1).copy()
+    dq[np.arange(C)[:, None], np.arange(Kq)[None, :],
+       rs.integers(0, 32, (C, Kq))] ^= 7
+    clutter = rs.uniform(size=(C, Kq)) < 0.3
+    dq[clutter] = rs.integers(0, 256, (int(clutter.sum()), 32), dtype=np.uint8)
+    vq = np.ones((C, Kq), bool)
+    vt = np.ones((C, Kt), bool)
+    if case == "masked":
+        vq = rs.uniform(size=(C, Kq)) < 0.8
+        vt = rs.uniform(size=(C, Kt)) < 0.7
+    elif case == "zero_one_valid":
+        vt[0] = False                      # no valid target at all
+        vt[1] = False
+        vt[1, 17] = True                   # exactly one valid target
+        vt[2] = False
+        vt[2, [3, 90]] = True              # exactly two
+    elif case == "ties":
+        dt[:, 1::2] = dt[:, 0::2]          # duplicate targets: d1 == d2 ties
+        dq = np.take_along_axis(dt, src[:, :, None], axis=1).copy()
+    return dq, vq, dt, vt
+
+
+CASES = ["all_valid", "masked", "zero_one_valid", "ties"]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("path", ["xla", "interpret"])
+def test_knn2_lowe_match_pairs(case, path):
+    dq, vq, dt, vt = _pairs(case)
+    mj, dj = jh.knn2_lowe_match_pairs(
+        jnp.asarray(dq), jnp.asarray(vq), jnp.asarray(dt), jnp.asarray(vt),
+        lowe_ratio=0.7, interpret=(path == "interpret"))
+    mt, d1t = th.knn2_lowe_match_pairs(
+        torch.from_numpy(dq), torch.from_numpy(vq), torch.from_numpy(dt),
+        torch.from_numpy(vt), lowe_ratio=0.7)
+    assert mt.dtype == torch.int32 and d1t.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
+    np.testing.assert_array_equal(np.asarray(dj), d1t.numpy())
+    if case == "all_valid":
+        assert (mt >= 0).sum() > 0.4 * mt.numel()   # matches do occur
+    if case == "zero_one_valid":
+        assert (mt[0] == -1).all() and (d1t[0] == 512).all()
+        assert set(mt[1].tolist()) <= {-1, 17}
+
+
+@pytest.mark.parametrize("max_distance", [256, 2])
+def test_max_distance_and_ratio(max_distance):
+    dq, vq, dt, vt = _pairs("all_valid", seed=3)
+    mj, dj = jh.knn2_lowe_match_pairs(
+        jnp.asarray(dq), jnp.asarray(vq), jnp.asarray(dt), jnp.asarray(vt),
+        lowe_ratio=0.85, max_distance=max_distance)
+    mt, d1t = th.knn2_lowe_match_pairs(
+        torch.from_numpy(dq), torch.from_numpy(vq), torch.from_numpy(dt),
+        torch.from_numpy(vt), lowe_ratio=0.85, max_distance=max_distance)
+    np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
+    np.testing.assert_array_equal(np.asarray(dj), d1t.numpy())
+
+
+def test_unpack_bits_and_hamming_matrix():
+    rs = np.random.default_rng(1)
+    a = rs.integers(0, 256, (37, 32), dtype=np.uint8)
+    b = rs.integers(0, 256, (50, 32), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        np.asarray(jh.unpack_bits(jnp.asarray(a))),
+        th.unpack_bits(torch.from_numpy(a)).numpy())
+    np.testing.assert_array_equal(
+        np.unpackbits(a, axis=-1, bitorder="little"),
+        th.unpack_bits(torch.from_numpy(a)).numpy())
+    D = th.hamming_matrix(torch.from_numpy(a), torch.from_numpy(b))
+    np.testing.assert_array_equal(
+        np.asarray(jh.hamming_matrix(jnp.asarray(a), jnp.asarray(b))),
+        D.numpy())
+    popc = np.unpackbits(a[:, None, :] ^ b[None, :, :], axis=-1).sum(-1)
+    np.testing.assert_array_equal(popc, D.numpy())
+
+
+def test_pair_top2_ref_first_index_on_ties():
+    """The plain version the CUDA kernel is held against: lowest index
+    wins among equal distances, 512 stands for no valid target."""
+    dq, vq, dt, vt = _pairs("ties", seed=5)
+    d1, d2, i1 = th._pair_top2_ref(torch.from_numpy(dq), torch.from_numpy(dt),
+                                   torch.from_numpy(vt))
+    D = np.unpackbits(dq[:, :, None, :] ^ dt[:, None, :, :], axis=-1).sum(-1)
+    np.testing.assert_array_equal(i1.numpy(), D.argmin(-1))
+    np.testing.assert_array_equal(d1.numpy(), D.min(-1))
+    np.testing.assert_array_equal(d2.numpy(), np.sort(D, -1)[..., 1])
+    none = torch.zeros_like(torch.from_numpy(vt))
+    d1, d2, i1 = th._pair_top2_ref(torch.from_numpy(dq), torch.from_numpy(dt),
+                                   none)
+    assert (d1 == 512).all() and (d2 == 512).all() and (i1 == 0).all()
