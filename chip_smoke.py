@@ -6,12 +6,14 @@
 Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc,
 holds each of them against its plain PyTorch version at the shapes of the
 main path (and at ragged shapes), then drives the main path — loop-closure
-verification, `make_verifier(FrontendConfig(use_5pt=False))` — over
-keyframe stores of 6 robots x 1024 keyframes x 704 features in chunks of
-1024 candidates with 500 RANSAC hypotheses, checks the results against the
-generator's ground truth and against the same call forced through the
-plain versions, and times kernels (device time) and stages (as the caller
-sees them) with CUDA events.
+verification, `make_verifier(FrontendConfig())` with the default 5-point
+mono gate — over keyframe stores of 6 robots x 1024 keyframes x 704
+features in chunks of 1024 candidates with 500 RANSAC hypotheses, and the
+8-point mono gate (`FrontendConfig(use_5pt=False)`) over two of the
+chunks. Each run is checked against the generator's ground truth and
+against the same call forced through the plain versions, and kernels
+(device time) and stages (as the caller sees them) are timed with CUDA
+events.
 
 Every phase is fatal: a kernel that does not build, launch or agree, a
 wrong result, or no GPU ends the run with a non-zero exit code. The last
@@ -20,10 +22,10 @@ it are JSON objects {"kernels": [...]} and {"stages": {...}}.
 
     python3 chip_smoke.py --profile
 
-also traces one chunk of the main path with torch.profiler and prints a
-{"profile": {...}} line: device kernels launched per chunk, the device's
-busy time and idle share within the chunk, and the kernels that take most
-of the device time.
+also traces one chunk of the default configuration with torch.profiler
+and prints a {"profile": {...}} line: device kernels launched per chunk,
+the device's busy time and idle share within the chunk, and the kernels
+that take most of the device time.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ N_ROBOTS, N_FRAMES, K_FEAT = 6, 1024, 704
 CHUNK, N_HYP = 1024, 500
 SUB = 64            # candidates per call of a plain version (memory)
 SUB_PATH = 32       # candidates of the whole-path plain comparison
+# ransac_essential_5pt's defaults
+N_STARTS, GN_ITERS, PRESEL_PTS, PRESEL_MODELS = 8, 8, 64, 128
 
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 flop/s outside
 # the tensor cores. Integer XOR/POPC/ADD have no published figure; they are
@@ -49,6 +53,10 @@ SUB_PATH = 32       # candidates of the whole-path plain comparison
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT = PEAK_F32 / 2
+# f32 operations of one residual: rigid (R p + t, difference, squared
+# norm, compare) and Sampson (E f1, two rows of E^T f2, numerator,
+# denominator, division, compare)
+OPS_RIGID, OPS_SAMPSON = 26, 40
 
 
 def log(msg: str) -> None:
@@ -103,6 +111,29 @@ def over_subbatches(fn, tensors, sub=SUB):
     return torch.cat(outs)
 
 
+def elementwise_ops(fn) -> int:
+    """Arithmetic operations fn() performs, one per output element of each
+    elementwise add/sub/mul/div/sqrt/clamp/neg/reciprocal it dispatches.
+    Run on one-element tensors this is the work of one kernel thread."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arith = {"add", "sub", "mul", "div", "sqrt", "clamp", "neg",
+             "reciprocal"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ in arith:
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    return Count.n
+
+
 def profile_chunk(full, full_ms: float) -> dict:
     """One chunk of the main path under torch.profiler: how many device
     kernels it launches, how long the device is busy, which kernels take
@@ -146,6 +177,29 @@ def profile_chunk(full, full_ms: float) -> dict:
     }
 
 
+def clean_fivept_samples(C: int, H: int, seed: int):
+    """Clean minimal samples of rigid two-view scenes, (C, 15, H) per side
+    (row 3 j + d = coordinate d of sample j), on the host."""
+    rs = np.random.default_rng(seed)
+    P = rs.uniform(-3, 3, (C, H, 5, 3))
+    P[..., 2] = rs.uniform(3, 9, (C, H, 5))
+    w = rs.normal(0, 0.3, (C, 3))
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = w / th[:, :, 0]
+    Kx = np.zeros((C, 3, 3))
+    Kx[:, 0, 1], Kx[:, 0, 2], Kx[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    Kx = Kx - Kx.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+    t = rs.uniform(-0.5, 0.5, (C, 3))
+    P2 = np.einsum("chkj,cji->chki", P - t[:, None, None, :], R)
+    out = []
+    for X in (P, P2):
+        f = X / np.linalg.norm(X, axis=-1, keepdims=True)
+        out.append(torch.from_numpy(np.ascontiguousarray(
+            f.transpose(0, 2, 3, 1).reshape(C, 15, H).astype(np.float32))))
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     # ------------------------------------------------------------------ 1
@@ -164,16 +218,16 @@ def main() -> None:
     from kimera_multi_tpu_torch.frontend.batched import make_verifier
     from kimera_multi_tpu_torch.frontend.dlc import FrontendConfig
     from kimera_multi_tpu_torch.io import synthetic
-    from kimera_multi_tpu_torch.kernels import (_build, gather, hamming,
-                                                ransac, score)
+    from kimera_multi_tpu_torch.kernels import (_build, fivept, gather,
+                                                hamming, minimal, ransac,
+                                                score)
 
     # ------------------------------------------------------------------ 2
     t0 = time.time()
     _build.build_all()
-    for fn in ("kmt_pair_top2", "kmt_sample_gather_perm_t",
-               "kmt_permute_cols", "kmt_rigid_counts",
-               "kmt_essential_counts"):
-        _build.get_fn(fn)
+    for fns in _build.SOURCES.values():
+        for fn in fns:
+            _build.get_fn(fn)
     build_s = time.time() - t0
     log(f"built and loaded {len(_build.SOURCES)} CUDA sources in "
         f"{build_s:.1f} s")
@@ -194,9 +248,14 @@ def main() -> None:
     log(f"stores {tuple(desc_store.shape)} on {dev}: {store_mb:.0f} MB, "
         f"{n_cand} candidates in {n_chunks} chunks of {CHUNK} "
         f"({time.time() - t0:.1f} s on the host)")
-    cfg = FrontendConfig(use_5pt=False, ransac_hyp=N_HYP)
+    cfg = FrontendConfig(ransac_hyp=N_HYP)                 # the default
+    cfg8 = FrontendConfig(use_5pt=False, ransac_hyp=N_HYP)
+    if not cfg.use_5pt:
+        fail("the default FrontendConfig does not take the 5-point gate")
     verify_many = make_verifier(cfg, device=dev)
+    verify_8pt = make_verifier(cfg8, device=dev)
     base_key = rng.base_key(cfg.base_seed, device=dev)
+    thr = cfg.mono_threshold
 
     def chunk_idx(i):
         sl = slice(i * CHUNK, (i + 1) * CHUNK)
@@ -213,10 +272,25 @@ def main() -> None:
     bm, lm = bear_store[tr, tm], lm_store[tr, tm]
     bm_m, lm_m = gather.permute_cols(bm, idx), gather.permute_cols(lm, idx)
     keys = rng.derive(base_key, qr, qf, tr, tm)
-    picks8, order, inv_order = ransac._masked_sample_parts(
-        rng.derive(keys, rng.Stream.RANSAC_MONO), matched, N_HYP, 8)
-    picks3, _, _ = ransac._masked_sample_parts(
-        rng.derive(keys, rng.Stream.RANSAC_STEREO), matched, N_HYP, 3)
+    kmono = rng.derive(keys, rng.Stream.RANSAC_MONO)
+    kst = rng.derive(keys, rng.Stream.RANSAC_STEREO)
+    picks5, order, inv_order = ransac._masked_sample_parts(
+        kmono, matched, N_HYP, 5)
+    picks8, _, _ = ransac._masked_sample_parts(kmono, matched, N_HYP, 8)
+    picks3, _, _ = ransac._masked_sample_parts(kst, matched, N_HYP, 3)
+    # 5-point path: samples -> raw models -> preselect counts -> survivors
+    g1 = gather.sample_gather_perm_t(bq, picks5, order, inv_order)
+    g2 = gather.sample_gather_perm_t(bm_m, picks5, order, inv_order)
+    E_rows = fivept.fivept_models(g1, g2, N_STARTS, GN_ITERS, project=False)
+    head = order[:, :PRESEL_PTS, None].contiguous()
+    f1p = gather.sample_gather_t(bq, head)
+    f2p = gather.sample_gather_t(bm_m, head)
+    validp = (torch.arange(PRESEL_PTS, device=dev)[None, :]
+              < matched.sum(1)[:, None])
+    counts_hs = fivept.presel_counts(E_rows, f1p, f2p, validp, thr, N_STARTS)
+    E_sel = minimal._project_essential(fivept.select_models(
+        E_rows, counts_hs, PRESEL_MODELS, N_STARTS)[0])[0].contiguous()
+    # 8-point and stereo hypotheses
     E_h, _ = ransac.solve_essential_hyps(bq, bm_m, picks8, order, inv_order)
     R_h, t_h, _ = ransac.solve_arun_hyps(lq, lm_m, picks3, order, inv_order)
     E_h, R_h, t_h = E_h.contiguous(), R_h.contiguous(), t_h.contiguous()
@@ -238,15 +312,53 @@ def main() -> None:
             d = (g.to(torch.float64) - r.to(torch.float64)).abs()
             err = max(err, float(d.max())) if d.numel() else err
             bad += int((d != 0).sum())
-        log(f"  {name:22s} {what:28s} max_abs_err {err:g}  mismatches {bad}")
+        log(f"  {name:22s} {what:34s} max_abs_err {err:g}  mismatches {bad}")
         if bad:
             fail(f"{name} ({what}) disagrees with its plain version: "
                  f"{bad} elements, max abs err {err} (limit: exact equality)")
         return err
 
     log("kernels against their plain versions (limit: exact equality; the "
-        "scoring kernels are built with -fmad=false in the plain versions' "
-        "operation order, so counts must be equal, not merely close)")
+        "scoring kernels and the five-point kernel are built with "
+        "-fmad=false in the plain versions' operation order, so counts and "
+        "models must be equal, not merely close)")
+    n_valid = int(matched.sum())
+    n_validp = int(validp.sum())
+    # f32 operations the five-point function needs per (candidate,
+    # hypothesis): the plain version's elementwise arithmetic at one
+    # hypothesis with all its starts, counted on the host. The design and
+    # nullspace are counted once per hypothesis (the kernel recomputes them
+    # in each start's thread; that is its choice, not needed work), the
+    # polish once per start: split = ops(1 start) and ops(2) - ops(1).
+    S5 = N_STARTS
+    one = torch.rand(1, 15, 1)
+    ops_5pt = {s: elementwise_ops(lambda: fivept._fivept_models_ref(
+        one, one.flip(1), s, GN_ITERS, project=False)) for s in (1, 2, S5)}
+    ops_per_start = ops_5pt[2] - ops_5pt[1]
+    ops_shared = ops_5pt[1] - ops_per_start
+
+    def touched(cols):
+        """Distinct (candidate, column) pairs that the indices `cols`
+        (C, ...) select from a (C, ., K) array: the columns a gather must
+        read, counted from this run's indices."""
+        z = torch.zeros(cols.shape[0], K, dtype=torch.bool, device=dev)
+        z.scatter_(1, cols.reshape(cols.shape[0], -1).long().clamp(0, K - 1),
+                   True)
+        return int(z.sum())
+
+    # the bytes of each gather count the columns its indices reach, not
+    # the whole (C, 3, K) data array
+    n_head = touched(head)
+    n_perm = {k: (touched(torch.gather(order, 1, p.reshape(C, -1).long())),
+                  touched(p)) for k, p in ((5, picks5), (3, picks3),
+                                           (8, picks8))}
+
+    def perm_bytes(k):
+        cols, picked = n_perm[k]
+        return (cols * 3 * 4 + C * H * k * 4 + picked * 4
+                + C * 3 * k * H * 4)
+
+    n_idx = touched(idx)
     specs = {
         "pair_top2": dict(
             args=(dq, dm, vm), fn=hamming._pair_top2,
@@ -254,56 +366,118 @@ def main() -> None:
             source="kimera_multi_tpu_torch/kernels/csrc/hamming.cu",
             replaces="kimera_multi_tpu/kernels/hamming.py:162",
             bytes=C * (K + K) * 32 + C * K + 3 * C * K * 4,
-            ops=C * K * K * 8 * 3, peak=PEAK_INT),
+            ops=C * K * K * 8 * 3, peak=PEAK_INT, per_chunk=1,
+            shape=f"C={C} Kq=Kt={K}"),
+        "sample_gather_t": dict(
+            args=(bq, head), fn=gather.sample_gather_t,
+            ref=gather.sample_gather_t_ref,
+            source="kimera_multi_tpu_torch/kernels/csrc/gather.cu",
+            replaces="kimera_multi_tpu/kernels/gather.py:93",
+            bytes=n_head * 3 * 4 + C * PRESEL_PTS * 4
+            + C * 3 * PRESEL_PTS * 4,
+            ops=0, peak=PEAK_F32, per_chunk=2,
+            shape=f"C={C} K={K} H={PRESEL_PTS} k=1 (preselect points)"),
         "sample_gather_perm_t": dict(
-            args=(bq, picks8, order, inv_order),
+            args=(bq, picks5, order, inv_order),
             fn=gather.sample_gather_perm_t,
             ref=lambda d, p, o, i: gather.sample_gather_perm_t_ref(d, p, o),
             source="kimera_multi_tpu_torch/kernels/csrc/gather.cu",
             replaces="kimera_multi_tpu/kernels/gather.py:139",
-            bytes=C * 3 * K * 4 + C * H * 8 * 4 + C * K * 4
-            + C * 8 * 3 * H * 4,
-            ops=0, peak=PEAK_F32),
+            bytes=perm_bytes(5), ops=0, peak=PEAK_F32, per_chunk=2,
+            shape=f"C={C} K={K} H={H} k=5"),
         "permute_cols": dict(
             args=(bm, idx), fn=gather.permute_cols,
             ref=gather.permute_cols_ref,
             source="kimera_multi_tpu_torch/kernels/csrc/gather.cu",
             replaces="kimera_multi_tpu/kernels/gather.py:188",
-            bytes=C * 3 * K * 4 + C * K * 4 + C * 3 * K * 4,
-            ops=0, peak=PEAK_F32),
+            bytes=n_idx * 3 * 4 + C * K * 4 + C * 3 * K * 4,
+            ops=0, peak=PEAK_F32, per_chunk=2, shape=f"C={C} K={K}"),
+        "fivept_models": dict(
+            args=(g1, g2),
+            fn=lambda a, b: fivept.fivept_models(a, b, S5, GN_ITERS,
+                                                 project=False),
+            ref=lambda a, b: fivept._fivept_models_ref(a, b, S5, GN_ITERS,
+                                                       project=False),
+            sub=C,  # the plain version fits the whole chunk
+            source="kimera_multi_tpu_torch/kernels/csrc/fivept.cu",
+            replaces="kimera_multi_tpu/kernels/fivept.py:183",
+            bytes=2 * C * 15 * H * 4 + C * 9 * S5 * H * 4,
+            ops=C * H * ops_5pt[S5], peak=PEAK_F32, per_chunk=1,
+            shape=f"C={C} H={H} S={S5} gn_iters={GN_ITERS}"),
+        "presel_counts": dict(
+            args=(E_rows, f1p, f2p, validp),
+            fn=lambda *a: fivept.presel_counts(*a, thr, S5),
+            ref=lambda *a: fivept.presel_counts_ref(*a, thr, S5),
+            source="kimera_multi_tpu_torch/kernels/csrc/score.cu",
+            replaces="kimera_multi_tpu/kernels/fivept.py:313",
+            bytes=C * 9 * S5 * H * 4 + 2 * C * 3 * PRESEL_PTS * 4
+            + C * PRESEL_PTS + C * H * S5 * 4,
+            ops=H * S5 * n_validp * OPS_SAMPSON, peak=PEAK_F32, per_chunk=1,
+            shape=f"C={C} H={H} S={S5} P={PRESEL_PTS}"),
         "rigid_counts": dict(
             args=(R_h, t_h, lq, lm_m, matched),
             fn=lambda *a: score.rigid_counts(*a, cfg.stereo_threshold),
             ref=lambda *a: score.rigid_counts_ref(*a, cfg.stereo_threshold),
             source="kimera_multi_tpu_torch/kernels/csrc/score.cu",
             replaces="kimera_multi_tpu/kernels/score.py:116",
-            bytes=C * H * 12 * 4 + 2 * C * 3 * K * 4 + C * K + C * H * 4,
-            ops=C * H * K * 26, peak=PEAK_F32),
+            bytes=C * H * 12 * 4 + 2 * n_valid * 3 * 4 + C * K + C * H * 4,
+            ops=H * n_valid * OPS_RIGID, peak=PEAK_F32, per_chunk=1,
+            shape=f"C={C} K={K} H={H}"),
         "essential_counts": dict(
-            args=(E_h, bq, bm_m, matched),
-            fn=lambda *a: score.essential_counts(*a, cfg.mono_threshold),
-            ref=lambda *a: score.essential_counts_ref(*a, cfg.mono_threshold),
+            args=(E_sel, bq, bm_m, matched),
+            fn=lambda *a: score.essential_counts(*a, thr),
+            ref=lambda *a: score.essential_counts_ref(*a, thr),
             source="kimera_multi_tpu_torch/kernels/csrc/score.cu",
             replaces="kimera_multi_tpu/kernels/score.py:218",
-            bytes=C * H * 9 * 4 + 2 * C * 3 * K * 4 + C * K + C * H * 4,
-            ops=C * H * K * 40, peak=PEAK_F32),
+            bytes=C * PRESEL_MODELS * 9 * 4 + 2 * n_valid * 3 * 4 + C * K
+            + C * PRESEL_MODELS * 4,
+            ops=PRESEL_MODELS * n_valid * OPS_SAMPSON, peak=PEAK_F32,
+            per_chunk=1,
+            shape=f"C={C} K={K} H={PRESEL_MODELS} (5-point rescore)"),
+    }
+    # second shapes of the same kernels: the stereo gather, and the 8-point
+    # path's gather and scoring (use_5pt=False); the last number is the
+    # shape's launches per chunk of the default configuration
+    extra = {
+        "sample_gather_perm_t": [
+            ("k=3 (stereo)", (lq, picks3, order, inv_order),
+             perm_bytes(3), 0, 2),
+            ("k=8 (use_5pt=False)", (bq, picks8, order, inv_order),
+             perm_bytes(8), 0, 0)],
+        "essential_counts": [
+            (f"H={H} (use_5pt=False)", (E_h, bq, bm_m, matched),
+             C * H * 9 * 4 + 2 * n_valid * 3 * 4 + C * K + C * H * 4,
+             H * n_valid * OPS_SAMPSON, 0)],
     }
     errs = {}
     for name, s in specs.items():
         got = s["fn"](*s["args"])
         torch.cuda.synchronize()
-        ref = over_subbatches(s["ref"], s["args"])
+        ref = over_subbatches(s["ref"], s["args"], s.get("sub", SUB))
         torch.cuda.synchronize()
-        errs[name] = check(name, got, ref, f"C={C} K={K} H={H}")
-    # the stereo gather (k = 3) is the second shape of the same kernel
-    check("sample_gather_perm_t",
-          gather.sample_gather_perm_t(lq, picks3, order, inv_order),
-          over_subbatches(
-              lambda d, p, o: gather.sample_gather_perm_t_ref(d, p, o),
-              (lq, picks3, order)), f"C={C} K={K} H={H} k=3")
+        errs[name] = check(name, got, ref, s["shape"].split(" (")[0])
+    for name, shapes in extra.items():
+        for what, args, *_ in shapes:
+            check(name, specs[name]["fn"](*args),
+                  over_subbatches(specs[name]["ref"], args), what)
+
+    # the five-point kernel solves its problem: on clean minimal samples
+    # nearly every hypothesis has a start that fits its 5 constraints
+    cf1, cf2 = (x.to(dev) for x in clean_fivept_samples(64, H, seed=1))
+    rows = fivept.fivept_models(cf1, cf2, S5, GN_ITERS, project=False)
+    Et = fivept.models_to_flat(rows, S5).reshape(64, H, S5, 3, 3)
+    a = cf1.reshape(64, 5, 3, H).permute(0, 3, 1, 2)
+    b = cf2.reshape(64, 5, 3, H).permute(0, 3, 1, 2)
+    resid = torch.einsum("chkj,chsji,chki->chsk", b, Et, a).abs().amax(-1)
+    solved = float((resid.amin(-1) < 5e-4).float().mean())
+    log(f"  fivept_models on clean samples: best start's epipolar residual "
+        f"< 5e-4 on {solved:.4f} of {64 * H} hypotheses (limit 0.95)")
+    if solved < 0.95:
+        fail("the five-point kernel does not solve clean minimal samples")
 
     # ragged shapes: K not a multiple of 32, H not of the hypothesis tile,
-    # Kq != Kt, more targets than one shared-memory tile, empty masks
+    # Kq != Kt, more targets than one shared-memory tile, empty masks,
+    # fewer than 5 valid matches, fewer than P valid preselect points
     g = torch.Generator(device="cpu").manual_seed(0)
     Cr, Kq, Kt, Hr = 7, 77, 1101, 45
 
@@ -322,15 +496,19 @@ def main() -> None:
     check("pair_top2", hamming._pair_top2(rdq, rdt, rvt),
           hamming._pair_top2_ref(rdq, rdt, rvt), f"C={Cr} Kq={Kq} Kt={Kt}")
     rdata = rnd(Cr, 3, Kt)
-    for k in (3, 8):
+    for k in (1, 3, 5, 8):
         rp = torch.randint(0, Kt, (Cr, Hr, k), generator=g,
                            dtype=torch.int32).to(dev)
+        rp[0, 0, 0], rp[1, 2, k - 1] = -3, Kt + 5   # clamped
         ro = torch.stack([torch.randperm(Kt, generator=g)
                           for _ in range(Cr)]).to(torch.int32).to(dev)
         ri = torch.argsort(ro, dim=1).to(torch.int32)
         check("sample_gather_perm_t",
               gather.sample_gather_perm_t(rdata, rp, ro, ri),
               gather.sample_gather_perm_t_ref(rdata, rp, ro),
+              f"C={Cr} K={Kt} H={Hr} k={k}")
+        check("sample_gather_t", gather.sample_gather_t(rdata, rp),
+              gather.sample_gather_t_ref(rdata, rp),
               f"C={Cr} K={Kt} H={Hr} k={k}")
     ridx = torch.randint(0, Kt, (Cr, Kq), generator=g,
                          dtype=torch.int32).to(dev)
@@ -350,184 +528,317 @@ def main() -> None:
           score.essential_counts(rR, rf1, rf2, rvalid, 0.05),
           score.essential_counts_ref(rR, rf1, rf2, rvalid, 0.05),
           f"C={Cr} K={Kt} H={Hr}")
+    # five-point samples drawn the path's way from masks with 704, 40, 4
+    # (fewer than 5: repeated indices, degenerate designs) and 0 valid
+    rmask = torch.zeros(4, K, dtype=torch.bool, device=dev)
+    rmask[0], rmask[1, 100:140], rmask[2, [5, 6, K // 2, K - 1]] = (
+        True, True, True)
+    rbear = rnd(4, 3, K)
+    rbear = rbear / rbear.norm(dim=1, keepdim=True)
+    rperm = rbear[:, [1, 2, 0]].contiguous()
+    rpk, rord, rinv = ransac._masked_sample_parts(
+        kmono[:4], rmask, Hr, 5)
+    rg1 = gather.sample_gather_perm_t(rbear, rpk, rord, rinv)
+    rg2 = gather.sample_gather_perm_t(rperm, rpk, rord, rinv)
+    for S_, it in ((8, 3), (3, 0), (16, 8)):
+        check("fivept_models",
+              fivept.fivept_models(rg1, rg2, S_, it, project=False),
+              fivept._fivept_models_ref(rg1, rg2, S_, it, project=False),
+              f"C=4 H={Hr} S={S_} gn_iters={it}")
+    rrows = rnd(Cr, 9 * 8, Hr)
+    for P_ in (64, 300):
+        rf1p = rnd(Cr, 3, P_)
+        rf2p = rnd(Cr, 3, P_)
+        rf1p, rf2p = (x / x.norm(dim=1, keepdim=True) for x in (rf1p, rf2p))
+        # 0, 10, ..., 60 valid preselect points
+        rvp = (torch.arange(P_, device=dev)[None, :]
+               < (10 * torch.arange(Cr, device=dev))[:, None])
+        check("presel_counts",
+              fivept.presel_counts(rrows, rf1p, rf2p, rvp, 0.05, 8),
+              fivept.presel_counts_ref(rrows, rf1p, rf2p, rvp, 0.05, 8),
+              f"C={Cr} H={Hr} S=8 P={P_}")
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------------ 4
-    # the main path, counts set to 0 just before and read just after
-    _build.reset_launches()
-    outs = []
-    t0 = time.time()
-    for i in range(n_chunks):
-        outs.append(verify_many(base_key, *stores, *chunk_idx(i)))
-    torch.cuda.synchronize()
-    path_s = time.time() - t0
-    launches = dict(_build.launches)
-    log(f"main path: {n_chunks} chunks in {path_s:.2f} s; kernel launches "
-        f"{launches}")
-    expect = {"pair_top2": 1, "permute_cols": 2, "sample_gather_perm_t": 4,
-              "essential_counts": 1, "rigid_counts": 1}
-    for name, per_chunk in expect.items():
-        if launches[name] != per_chunk * n_chunks:
-            fail(f"main path launched {name} {launches[name]} times, "
-                 f"expected {per_chunk * n_chunks}")
-    out = {k: torch.cat([o[k] for o in outs]).cpu() for k in outs[0]}
-    for k, v in out.items():
-        if v.shape[0] != n_cand:
-            fail(f"output {k} has shape {tuple(v.shape)}")
     true = torch.from_numpy(S.is_true)
     R_gt, t_gt = torch.from_numpy(S.R_gt), torch.from_numpy(S.t_gt)
-    n_true = int(true.sum())
-    if not (torch.isfinite(out["R"][true]).all()
-            and torch.isfinite(out["t"][true]).all()):
-        fail("non-finite pose for a true pair")
-    st_acc = int(out["stereo_ok"][true].sum())
-    mono_acc = int(out["mono_ok"][true].sum())
-    both_acc = int((out["stereo_ok"] & out["mono_ok"])[true].sum())
-    R_err = float((out["R"][true] - R_gt[true]).abs().max())
-    t_err = float((out["t"][true] - t_gt[true]).abs().max())
-    false_acc = int((out["stereo_ok"] | out["mono_ok"])[~true].sum())
-    log(f"true pairs: {n_true}; stereo gate {st_acc}, mono gate {mono_acc}, "
-        f"both {both_acc}; max |R - R_gt| {R_err:.2e}, max |t - t_gt| "
-        f"{t_err:.2e} (limit 1e-3); unrelated pairs: {n_cand - n_true}, "
-        f"accepted by either gate {false_acc} (limit 0)")
-    log(f"inliers of true pairs: mono median "
-        f"{int(out['mono_inliers'][true].median())} min "
-        f"{int(out['mono_inliers'][true].min())}, stereo median "
-        f"{int(out['stereo_inliers'][true].median())} min "
-        f"{int(out['stereo_inliers'][true].min())}")
-    if st_acc != n_true or R_err > 1e-3 or t_err > 1e-3:
-        fail("a true pair was not recovered at the generator's pose")
-    # the mono count is taken after a float32 8-point refit on noise-free
-    # bearings, which loses inliers to rounding at the 1e-6 threshold (as
-    # in the reference); the gate needs 10 of ~420, so allow 1% misses
-    if mono_acc < 0.99 * n_true:
-        fail(f"mono gate accepted only {mono_acc} of {n_true} true pairs")
-    if false_acc:
-        fail("a pair of unrelated frames was accepted")
+
+    def drive(verify, chunks, expect, label):
+        """The main path over `chunks`, kernel counts set to 0 just before
+        and read just after; ground-truth gates on the result."""
+        _build.reset_launches()
+        outs = []
+        t0 = time.time()
+        for i in chunks:
+            outs.append(verify(base_key, *stores, *chunk_idx(i)))
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = dict(_build.launches)
+        log(f"{label}: {len(chunks)} chunks in {run_s:.2f} s; kernel "
+            f"launches {launches}")
+        for name, n in launches.items():
+            want = expect.get(name, 0) * len(chunks)
+            if n != want:
+                fail(f"{label} launched {name} {n} times, expected {want}")
+        out = {k: torch.cat([o[k] for o in outs]).cpu() for k in outs[0]}
+        sel = np.concatenate([np.arange(i * CHUNK, (i + 1) * CHUNK)
+                              for i in chunks])
+        tr_ = true[sel]
+        for k, v in out.items():
+            if v.shape[0] != len(sel):
+                fail(f"{label}: output {k} has shape {tuple(v.shape)}")
+        n_true = int(tr_.sum())
+        if not (torch.isfinite(out["R"][tr_]).all()
+                and torch.isfinite(out["t"][tr_]).all()):
+            fail(f"{label}: non-finite pose for a true pair")
+        st_acc = int(out["stereo_ok"][tr_].sum())
+        mono_acc = int(out["mono_ok"][tr_].sum())
+        R_err = float((out["R"][tr_] - R_gt[sel][tr_]).abs().max())
+        t_err = float((out["t"][tr_] - t_gt[sel][tr_]).abs().max())
+        false_acc = int((out["stereo_ok"] | out["mono_ok"])[~tr_].sum())
+        log(f"{label}: true pairs {n_true}; stereo gate {st_acc}, mono gate "
+            f"{mono_acc}; max |R - R_gt| {R_err:.2e}, max |t - t_gt| "
+            f"{t_err:.2e} (limit 1e-3); unrelated pairs "
+            f"{len(sel) - n_true}, accepted by either gate {false_acc} "
+            f"(limit 0); mono inliers of true pairs median "
+            f"{int(out['mono_inliers'][tr_].median())} min "
+            f"{int(out['mono_inliers'][tr_].min())}, stereo median "
+            f"{int(out['stereo_inliers'][tr_].median())}")
+        if st_acc != n_true or R_err > 1e-3 or t_err > 1e-3:
+            fail(f"{label}: a true pair was not recovered at the "
+                 f"generator's pose")
+        # the mono count is taken after a float32 8-point refit on
+        # noise-free bearings, which loses inliers to rounding at the 1e-6
+        # threshold (as in the reference); the gate needs 10 of ~420, so
+        # allow 1% misses
+        if mono_acc < 0.99 * n_true:
+            fail(f"{label}: mono gate accepted only {mono_acc} of {n_true} "
+                 f"true pairs")
+        if false_acc:
+            fail(f"{label}: a pair of unrelated frames was accepted")
+        return out, launches
+
+    common = {"pair_top2": 1, "permute_cols": 2, "rigid_counts": 1,
+              "essential_counts": 1}
+    expect5 = dict(common, sample_gather_perm_t=4, fivept_models=1,
+                   sample_gather_t=2, presel_counts=1)
+    expect8 = dict(common, sample_gather_perm_t=4)
+    out5, launches5 = drive(verify_many, range(n_chunks), expect5,
+                            "main path (use_5pt=True)")
+    chunks8 = [0, n_chunks - 1]     # true pairs, and the unrelated pairs
+    out8, launches8 = drive(verify_8pt, chunks8, expect8,
+                            "8-point path (use_5pt=False)")
 
     # the same call forced through the plain versions, on a sub-batch made
     # of true and unrelated pairs; same shapes on both sides, so every
     # library routine takes the same path and results must be identical
     @contextlib.contextmanager
     def plain_versions():
-        saved = (hamming.knn2_lowe_match_pairs, gather.sample_gather_perm_t,
-                 gather.permute_cols, score.rigid_counts,
-                 score.essential_counts)
+        saved = (hamming.knn2_lowe_match_pairs, gather.sample_gather_t,
+                 gather.sample_gather_perm_t, gather.permute_cols,
+                 fivept.fivept_models, fivept.presel_counts,
+                 score.rigid_counts, score.essential_counts)
         hamming.knn2_lowe_match_pairs = hamming.knn2_lowe_match
+        gather.sample_gather_t = gather.sample_gather_t_ref
         gather.sample_gather_perm_t = \
             lambda d, p, o, i: gather.sample_gather_perm_t_ref(d, p, o)
         gather.permute_cols = gather.permute_cols_ref
+        fivept.fivept_models = fivept._fivept_models_ref
+        fivept.presel_counts = fivept.presel_counts_ref
         score.rigid_counts = score.rigid_counts_ref
         score.essential_counts = score.essential_counts_ref
         try:
             yield
         finally:
-            (hamming.knn2_lowe_match_pairs, gather.sample_gather_perm_t,
-             gather.permute_cols, score.rigid_counts,
-             score.essential_counts) = saved
+            (hamming.knn2_lowe_match_pairs, gather.sample_gather_t,
+             gather.sample_gather_perm_t, gather.permute_cols,
+             fivept.fivept_models, fivept.presel_counts,
+             score.rigid_counts, score.essential_counts) = saved
 
-    sel = np.concatenate([np.arange(SUB_PATH - 8),
-                          n_true + np.arange(8)])
+    n_true = int(true.sum())
+    sel = np.concatenate([np.arange(SUB_PATH - 8), n_true + np.arange(8)])
     sub_idx = tuple(torch.from_numpy(x[sel].astype(np.int64)).to(dev)
                     for x in (S.qr, S.qf, S.tr, S.tm))
-    before = dict(_build.launches)
-    with plain_versions():
-        plain = verify_many(base_key, *stores, *sub_idx)
-    torch.cuda.synchronize()
-    if dict(_build.launches) != before:
-        fail("the plain-version run launched a kernel")
-    kern = verify_many(base_key, *stores, *sub_idx)
-    torch.cuda.synchronize()
-    for k in ("mono_ok", "stereo_ok", "mono_inliers", "stereo_inliers"):
-        if not torch.equal(kern[k], plain[k]):
-            fail(f"kernel path and plain path disagree on {k}: "
-                 f"{kern[k].tolist()} vs {plain[k].tolist()}")
-    pose_diff = max(float((kern[k] - plain[k]).abs().max())
-                    for k in ("R", "t"))
-    if not pose_diff <= 1e-6:
-        fail(f"kernel path and plain path poses differ by {pose_diff}")
-    # and the sub-batch gives what its candidates gave inside their chunks
-    for k in ("mono_ok", "stereo_ok", "stereo_inliers"):
-        if not torch.equal(kern[k].cpu(), out[k][sel]):
-            fail(f"{k} of a candidate depends on its batch")
-    mono_diff = (kern["mono_inliers"].cpu() - out["mono_inliers"][sel]).abs()
-    log(f"kernel path == plain path on {len(sel)} candidates (gates and "
-        f"inlier counts equal, max pose diff {pose_diff:g}); mono inlier "
-        f"count sub-batch vs chunk max diff {int(mono_diff.max())}")
+    for label, verify, out, rows_of in (
+            ("use_5pt=True", verify_many, out5, sel),
+            ("use_5pt=False", verify_8pt, out8,
+             np.where(sel < CHUNK, sel, sel - n_true + CHUNK))):
+        before = dict(_build.launches)
+        with plain_versions():
+            plain = verify(base_key, *stores, *sub_idx)
+        torch.cuda.synchronize()
+        if dict(_build.launches) != before:
+            fail("the plain-version run launched a kernel")
+        kern = verify(base_key, *stores, *sub_idx)
+        torch.cuda.synchronize()
+        for k in ("mono_ok", "stereo_ok", "mono_inliers", "stereo_inliers"):
+            if not torch.equal(kern[k], plain[k]):
+                fail(f"{label}: kernel path and plain path disagree on {k}:"
+                     f" {kern[k].tolist()} vs {plain[k].tolist()}")
+        pose_diff = max(float((kern[k] - plain[k]).abs().max())
+                        for k in ("R", "t"))
+        if not pose_diff <= 1e-6:
+            fail(f"{label}: kernel path and plain path poses differ by "
+                 f"{pose_diff}")
+        # and the sub-batch gives what its candidates gave inside chunks
+        for k in ("mono_ok", "stereo_ok", "stereo_inliers"):
+            if not torch.equal(kern[k].cpu(), out[k][rows_of]):
+                fail(f"{label}: {k} of a candidate depends on its batch")
+        mono_diff = (kern["mono_inliers"].cpu()
+                     - out["mono_inliers"][rows_of]).abs()
+        log(f"{label}: kernel path == plain path on {len(sel)} candidates "
+            f"(gates and inlier counts equal, max pose diff {pose_diff:g});"
+            f" mono inlier count sub-batch vs chunk max diff "
+            f"{int(mono_diff.max())}")
 
     # ------------------------------------------------------------------ 5
+    idx64 = idx.long()[:, None, :].expand(C, 3, K).contiguous()
+    order64, picks64 = order.long(), picks5.long().reshape(C, H * 5)
+    head64 = order[:, :PRESEL_PTS].long()[:, None, :].expand(
+        C, 3, PRESEL_PTS).contiguous()
     lib = {
         "permute_cols": lambda: torch.gather(bm, 2, idx64),
         "sample_gather_perm_t": lambda: torch.gather(
             bq, 2, torch.gather(order64, 1, picks64)[:, None, :].expand(
-                C, 3, H * 8)).reshape(C, 3, H, 8).permute(
-                    0, 3, 1, 2).reshape(C, 24, H),
+                C, 3, H * 5)).reshape(C, 3, H, 5).permute(
+                    0, 3, 1, 2).reshape(C, 15, H),
+        "sample_gather_t": lambda: torch.gather(bq, 2, head64),
     }
-    idx64 = idx.long()[:, None, :].expand(C, 3, K).contiguous()
-    order64, picks64 = order.long(), picks8.long().reshape(C, H * 8)
+
+    def bound(n_bytes, n_ops, peak):
+        b_bytes = n_bytes / PEAK_BYTES * 1e3
+        b_ops = n_ops / peak * 1e3
+        return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else \
+            "operations"
+
     for name, s in specs.items():
         ms = device_ms(lambda: s["fn"](*s["args"]))
         host_ms = time_ms(lambda: s["fn"](*s["args"]))
         plain_ms = time_ms(
-            lambda: over_subbatches(s["ref"], s["args"]), iters=2, warmup=1)
-        b_bytes = s["bytes"] / PEAK_BYTES * 1e3
-        b_ops = s["ops"] / s["peak"] * 1e3
-        kernels.append({
+            lambda: over_subbatches(s["ref"], s["args"], s.get("sub", SUB)),
+            iters=2, warmup=1)
+        b_ms, b_by = bound(s["bytes"], s["ops"], s["peak"])
+        row = {
             "name": name, "route": "cuda", "source": s["source"],
-            "replaces": s["replaces"], "launches": launches[name],
+            "replaces": s["replaces"], "launches": launches5[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": device_ms(lib[name]) if name in lib else None,
+            "bytes": s["bytes"], "ops": s["ops"],
             "ms_with_host_enqueue": host_ms,
-            "launches_per_chunk": expect[name],
-            "shape": f"C={C} K={K} H={H}" + (" k=8" if "gather" in name
-                                            else ""),
-        })
-        log(f"  {name:22s} {ms:8.3f} ms  plain {plain_ms:9.3f} ms  bound "
-            f"{max(b_bytes, b_ops):.4f} ms")
+            "launches_per_chunk": s["per_chunk"],
+            "launches_use_5pt_false": launches8[name],
+            "shape": s["shape"],
+        }
+        if name == "fivept_models":
+            row.update(ops_per_hypothesis=ops_5pt[S5],
+                       ops_nullspace_per_hypothesis=ops_shared,
+                       ops_per_start=ops_per_start)
+        if name in extra:
+            row["other_shapes"] = []
+            for what, args, n_bytes, n_ops, per_chunk in extra[name]:
+                o_ms, o_by = bound(n_bytes, n_ops, s["peak"])
+                row["other_shapes"].append({
+                    "shape": what,
+                    "ms": device_ms(lambda: s["fn"](*args)),
+                    "bound_ms": o_ms, "bound_by": o_by,
+                    "bytes": n_bytes, "ops": n_ops,
+                    "launches_per_chunk": per_chunk})
+        kernels.append(row)
+        log(f"  {name:22s} {ms:8.4f} ms  plain {plain_ms:9.3f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})")
 
     idx0 = chunk_idx(0)
+    P, SK = PRESEL_PTS, PRESEL_MODELS
 
     def match_stage():
         return hamming.knn2_lowe_match_pairs(
             desc_store[qr, qf], obs_store[qr, qf], desc_store[tr, tm],
             obs_store[tr, tm], cfg.lowe_ratio)
 
-    def mono_stage():
+    def mono5_stage():
+        return ransac.ransac_essential_5pt(
+            kmono, bq, gather.permute_cols(bm, idx), matched,
+            threshold=thr, n_hyp=N_HYP, min_inliers=cfg.min_mono_inliers)
+
+    def mono8_stage():
         return ransac.ransac_essential(
-            rng.derive(keys, rng.Stream.RANSAC_MONO), bq,
-            gather.permute_cols(bm, idx), matched,
-            threshold=cfg.mono_threshold, n_hyp=N_HYP,
-            min_inliers=cfg.min_mono_inliers)
+            kmono, bq, gather.permute_cols(bm, idx), matched,
+            threshold=thr, n_hyp=N_HYP, min_inliers=cfg.min_mono_inliers)
 
     def stereo_stage():
         return ransac.ransac_arun(
-            rng.derive(keys, rng.Stream.RANSAC_STEREO), lq,
-            gather.permute_cols(lm, idx), matched,
+            kst, lq, gather.permute_cols(lm, idx), matched,
             threshold=cfg.stereo_threshold, n_hyp=N_HYP,
             min_inliers=cfg.min_stereo_inliers)
+
+    # the split of the 5-point mono stage, step by step on chunk 0's inputs
+    def presel():
+        f1p_ = gather.sample_gather_t(bq, head)
+        f2p_ = gather.sample_gather_t(bm_m, head)
+        vp = (torch.arange(P, device=dev)[None, :]
+              < matched.sum(1)[:, None])
+        return fivept.presel_counts(E_rows, f1p_, f2p_, vp, thr, S5)
+
+    def select_project():
+        E_raw, _ = fivept.select_models(E_rows, counts_hs, SK, S5)
+        return minimal._project_essential(E_raw)[0].contiguous()
+
+    def rescore():
+        c = score.essential_counts(E_sel, bq, bm_m, matched, thr)
+        return ransac._take_best(E_sel, score.first_argmax(c))
+
+    E_b = rescore()
+
+    def refit():
+        return ransac._essential_result(E_b, bq, bm_m, matched, thr,
+                                        cfg.min_mono_inliers)
 
     def full():
         return verify_many(base_key, *stores, *idx0)
 
-    stages = {"match_ms": time_ms(match_stage, iters=5),
-              "mono_ransac_ms": time_ms(mono_stage, iters=3, warmup=1),
-              "stereo_ransac_ms": time_ms(stereo_stage, iters=3, warmup=1),
-              "sample_draws_ms": time_ms(
-                  lambda: ransac._masked_sample_parts(
-                      rng.derive(keys, rng.Stream.RANSAC_MONO), matched,
-                      N_HYP, 8), iters=3, warmup=1),
-              "full_ms": time_ms(full, iters=5, warmup=2)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        full()
-    torch.cuda.synchronize()
-    stages["full_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    def full8():
+        return verify_8pt(base_key, *stores, *idx0)
+
+    def wall_ms(fn, n=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    stages = {
+        "match_ms": time_ms(match_stage, iters=5),
+        "mono_5pt_ms": time_ms(mono5_stage, iters=3, warmup=1),
+        "mono_5pt_split_ms": {
+            "draws": time_ms(lambda: ransac._masked_sample_parts(
+                kmono, matched, N_HYP, 5), iters=3, warmup=1),
+            "gathers_K4": time_ms(lambda: (
+                gather.sample_gather_perm_t(bq, picks5, order, inv_order),
+                gather.sample_gather_perm_t(bm_m, picks5, order, inv_order)),
+                iters=5),
+            "fivept_K6": time_ms(lambda: fivept.fivept_models(
+                g1, g2, S5, GN_ITERS, project=False), iters=5),
+            "presel_K3_K7": time_ms(presel, iters=5),
+            "select_project": time_ms(select_project, iters=5),
+            "rescore_K9": time_ms(rescore, iters=5),
+            "refit": time_ms(refit, iters=3, warmup=1),
+        },
+        "mono_8pt_ms": time_ms(mono8_stage, iters=3, warmup=1),
+        "stereo_ransac_ms": time_ms(stereo_stage, iters=3, warmup=1),
+        "full_ms": time_ms(full, iters=5, warmup=2),
+        "full_ms_use_5pt_false": time_ms(full8, iters=5, warmup=2),
+    }
+    stages["full_host_ms"] = wall_ms(full)
+    stages["full_host_ms_use_5pt_false"] = wall_ms(full8)
     stages["lc_verifications_per_s"] = CHUNK / stages["full_ms"] * 1e3
+    stages["lc_verifications_per_s_use_5pt_false"] = (
+        CHUNK / stages["full_ms_use_5pt_false"] * 1e3)
+    # each launch of a chunk at its own shape
     stages["kernels_ms_per_chunk"] = sum(
-        k["ms"] * k["launches_per_chunk"] for k in kernels)
+        r["ms"] * r["launches_per_chunk"]
+        for k in kernels for r in [k] + k.get("other_shapes", []))
     stages.update(chunk=CHUNK, n_hyp=N_HYP, K=K_FEAT, card=card,
                   build_s=build_s,
                   peak_mem_mb=torch.cuda.max_memory_allocated() / 1e6,

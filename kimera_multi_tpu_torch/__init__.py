@@ -9,7 +9,8 @@ package.
 Layer map (what is ported so far):
   core/      device selection, threefry RNG policy, SE(3) helpers
   kernels/   Hamming 2-NN matcher, sample gathers, hypothesis scoring,
-             SoA minimal solvers, batched RANSAC; CUDA C++ under csrc/
+             SoA minimal solvers, five-point model generation, batched
+             RANSAC; CUDA C++ under csrc/
   frontend/  FrontendConfig, make_verifier (loop-closure verification)
   io/        synthetic keyframe stores and candidate pairs (numpy)
   convert    state handed over from the JAX package as numpy

@@ -2,10 +2,11 @@
 
 VERIFY stage of the batched front-end: ONE call over a candidate chunk
 against the device-resident keyframe stores — pair Hamming 2-NN + Lowe
-(kernels/hamming.py), then mono-essential and 3d3d-Arun RANSAC
-(kernels/ransac.py) over the whole chunk. Results for a candidate depend
-only on its structural address (query robot/frame, target robot/frame)
-and the base key, never on which chunk it is verified in.
+(kernels/hamming.py), then mono-essential RANSAC (5-point by default,
+8-point with `use_5pt=False`) and 3d3d-Arun RANSAC (kernels/ransac.py) over
+the whole chunk. Results for a candidate depend only on its structural
+address (query robot/frame, target robot/frame) and the base key, never on
+which chunk it is verified in.
 """
 
 from __future__ import annotations
@@ -21,12 +22,8 @@ def make_verifier(cfg: FrontendConfig, device="cuda"):
     """Builds `verify_many` for one configuration. It runs on the card
     unless the caller passes device="cpu"; asking for a card where there
     is none raises."""
-    if cfg.use_5pt:
-        raise NotImplementedError(
-            "use_5pt=True (the 5-point mono gate, ransac_essential_5pt with "
-            "the fivept model-generation and preselect kernels) is not "
-            "ported yet; pass FrontendConfig(use_5pt=False) for the "
-            "8-point gate")
+    mono_fn = (ransac.ransac_essential_5pt if cfg.use_5pt
+               else ransac.ransac_essential)
     dev = backend.resolve_device(device)
 
     def _index(x):
@@ -63,7 +60,7 @@ def make_verifier(cfg: FrontendConfig, device="cuda"):
         bm_m = gather.permute_cols(bear_store[tr, tm], idx)
         lm_m = gather.permute_cols(lm_store[tr, tm], idx)
         kmono = rngmod.derive(keys, rngmod.Stream.RANSAC_MONO)
-        mono = ransac.ransac_essential(
+        mono = mono_fn(
             kmono, bq, bm_m, matched,
             threshold=cfg.mono_threshold, n_hyp=cfg.ransac_hyp,
             min_inliers=cfg.min_mono_inliers)

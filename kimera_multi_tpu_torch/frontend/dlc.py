@@ -22,7 +22,7 @@ class FrontendConfig(NamedTuple):
     kappa_odo: float = 1e4
     tau_odo: float = 1e2
     min_intra_separation: int = 10  # skip near-diagonal self matches
-    # 5-pt minimal mono gate by default, as in the JAX package; the port
-    # has only the 8-point gate so far (use_5pt=False)
+    # 5-pt minimal mono gate by default (ransac_essential_5pt), as in the
+    # JAX package; use_5pt=False takes the 8-point gate
     use_5pt: bool = True
     base_seed: int = 0

@@ -25,9 +25,11 @@ CSRC_DIR = os.path.join(_PKG, "kernels", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # -fmad=false: the scoring kernels decide integers (inlier counts) by
-# comparing f32 residuals with a threshold. Without FMA contraction their
-# arithmetic is, operation for operation, that of the plain PyTorch
-# versions, so counts agree exactly and not merely within a tolerance.
+# comparing f32 residuals with a threshold, and the five-point polish is a
+# root finder that one ulp can send into another basin. Without FMA
+# contraction their arithmetic is, operation for operation, that of the
+# plain PyTorch versions, so results agree exactly and not merely within a
+# tolerance.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -40,19 +42,27 @@ SOURCES = {
         "kmt_pair_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "gather.cu": {
+        "kmt_sample_gather_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "kmt_sample_gather_perm_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "kmt_permute_cols": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "score.cu": {
         "kmt_rigid_counts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         "kmt_essential_counts": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+        "kmt_presel_counts": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "fivept.cu": {
+        "kmt_fivept_models": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     },
 }
 
 launches = {
     "pair_top2": 0,
+    "sample_gather_t": 0,
     "sample_gather_perm_t": 0,
     "permute_cols": 0,
+    "fivept_models": 0,
+    "presel_counts": 0,
     "rigid_counts": 0,
     "essential_counts": 0,
 }

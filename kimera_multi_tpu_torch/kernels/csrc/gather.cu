@@ -1,6 +1,7 @@
-// Minimal-sample gathers (K4, K5).
+// Minimal-sample gathers (K3, K4, K5).
 //
-// Replace the Pallas kernels `_sample_gather_perm_kernel` (wrapper
+// Replace the Pallas kernels `_sample_gather_kernel` (wrapper
+// `sample_gather_t`), `_sample_gather_perm_kernel` (wrapper
 // `sample_gather_perm_t`) and `_permute_cols_kernel` (wrapper
 // `permute_cols`) of kimera_multi_tpu/kernels/gather.py. On the TPU a
 // gather was a one-hot matrix product built in fast memory, because its
@@ -24,6 +25,22 @@ constexpr int kThreads = 128;
 
 __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
+}
+
+// out[c, m*D + i, h] = data[c, i, picks[c, h, m]]
+__global__ void __launch_bounds__(kThreads)
+sample_gather_kernel(const float* __restrict__ data,  // (C, D, K)
+                     const int* __restrict__ picks,   // (C, H, k)
+                     float* __restrict__ out,         // (C, k*D, H)
+                     int D, int K, int H, int k) {
+  const int h = blockIdx.x * kThreads + threadIdx.x;
+  const int m = blockIdx.y;
+  const int c = blockIdx.z;
+  if (h >= H) return;
+  const int j = clamp_index(picks[((size_t)c * H + h) * k + m], K);
+  const float* src = data + (size_t)c * D * K + j;
+  float* dst = out + ((size_t)c * k * D + (size_t)m * D) * H + h;
+  for (int i = 0; i < D; ++i) dst[(size_t)i * H] = src[(size_t)i * K];
 }
 
 // out[c, m*D + i, h] = data[c, i, order[c, picks[c, h, m]]]
@@ -60,6 +77,16 @@ permute_cols_kernel(const float* __restrict__ data,  // (C, D, Kin)
 }
 
 }  // namespace
+
+extern "C" int kmt_sample_gather_t(const void* data, const void* picks,
+                                   void* out, int C, int D, int K, int H,
+                                   int k, void* stream) {
+  if (C <= 0 || H <= 0 || k <= 0) return (int)cudaGetLastError();
+  dim3 grid((H + kThreads - 1) / kThreads, k, C);
+  sample_gather_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)data, (const int*)picks, (float*)out, D, K, H, k);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int kmt_sample_gather_perm_t(const void* data, const void* picks,
                                         const void* order, void* out, int C,

@@ -1,7 +1,7 @@
 """Minimal-sample gathers.
 
 RANSAC consumes its correspondence data through small random gathers:
-(n_hyp, k) sampled indices into a (3, K) point array, with the
+(n_hyp, k) sampled indices into a (3, K) point array, with or without the
 valid-first permutation of the correspondences folded in, and the
 reordering of target points by match index. Output layout of the sample
 gather is (k * D, H) with the hypothesis axis minor, so the SoA solvers
@@ -19,6 +19,36 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+
+def sample_gather_t_ref(data, picks):
+    """Plain version: out[c, m*D + i, h] = data[c, i, picks[c, h, m]]."""
+    C, D, K = data.shape
+    H, k = picks.shape[1:]
+    j = picks.long().reshape(C, H * k).clamp(0, K - 1)
+    g = torch.gather(data, 2, j[:, None, :].expand(C, D, H * k))
+    return g.reshape(C, D, H, k).permute(0, 3, 1, 2).reshape(C, k * D, H)
+
+
+def sample_gather_t(data: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:
+    """Minimal-sample gather, hypothesis-minor.
+
+    data: (C, D, K) f32 SoA; picks: (C, H, k) int32 in [0, K).
+    Returns (C, k * D, H): out[c, m*D + i, h] = data[c, i, picks[c, h, m]].
+    """
+    if data.device.type == "cpu":
+        return sample_gather_t_ref(data, picks)
+    C, D, K = data.shape
+    H, k = picks.shape[1:]
+    _build.check_cuda("data", data, torch.float32, (C, D, K))
+    _build.check_cuda("picks", picks, torch.int32, (C, H, k))
+    if C > 65535 or k > 65535:
+        raise ValueError("sample_gather_t: C and k at most 65535")
+    out = torch.empty((C, k * D, H), dtype=torch.float32, device=data.device)
+    with torch.cuda.device(data.device):
+        _build.launch("sample_gather_t", data.data_ptr(), picks.data_ptr(),
+                      out.data_ptr(), C, D, K, H, k)
+    return out
 
 
 def sample_gather_perm_t_ref(data, picks, order):

@@ -19,17 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as rng_mod
-from . import gather, minimal, score, soa
-
-
-def _first_argmax(x: torch.Tensor) -> torch.Tensor:
-    """Index of the FIRST maximum along the last axis. Inlier counts are
-    integers and tie often; `torch.argmax` promises no particular index
-    among equal maxima on the card."""
-    n = x.shape[-1]
-    ar = torch.arange(n, device=x.device)
-    mx = torch.max(x, dim=-1, keepdim=True).values
-    return torch.min(torch.where(x == mx, ar, n), dim=-1).values
+from . import fivept, gather, minimal, score, soa
 
 
 def _masked_sample_parts(key, valid: torch.Tensor, n_hyp: int, k: int,
@@ -82,6 +72,14 @@ def _distinct(picks: torch.Tensor) -> torch.Tensor:
     """(..., H) bool — True where the sample has no repeated index."""
     srt = torch.sort(picks, dim=-1).values
     return torch.all(srt[..., 1:] != srt[..., :-1], dim=-1)
+
+
+def _gather_samples(data, picks):
+    """data (C, 3, K); picks (C, H, k) indices. Returns a list over the k
+    sample points of SoA vec3s with (C, H) components."""
+    g = gather.sample_gather_t(data, picks)  # (C, k * 3, H)
+    k = picks.shape[-1]
+    return [[g[:, m * 3 + i] for i in range(3)] for m in range(k)]
 
 
 def _gather_samples_perm(data, picks, order, inv_order):
@@ -140,7 +138,7 @@ def ransac_arun(key, p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
     # on the card — no (C, H, K) residual tensor)
     counts = score.rigid_counts(R_h.contiguous(), t_h.contiguous(), p, q,
                                 valid, threshold) * ok_h
-    best = _first_argmax(counts)
+    best = score.first_argmax(counts)
     R_b, t_b = _take_best(R_h, best), _take_best(t_h, best)
 
     def _inliers(R_b, t_b):
@@ -186,15 +184,20 @@ def ransac_essential(key, f1: torch.Tensor, f2: torch.Tensor,
     E_h, ok_h = solve_essential_hyps(f1, f2, picks, order, inv_order)
     counts = score.essential_counts(E_h.contiguous(), f1, f2, valid,
                                     threshold) * ok_h
-    E_best = _take_best(E_h, _first_argmax(counts))
-    err0 = minimal.sampson_error_soa(E_best, f1, f2)
-    best_inl = (err0 < threshold) & valid
-    # refine on the consensus set (weighted 8-pt)
+    E_best = _take_best(E_h, score.first_argmax(counts))
+    return _essential_result(E_best, f1, f2, valid, threshold, min_inliers)
+
+
+def _essential_result(E_b, f1, f2, valid, threshold, min_inliers):
+    """Inliers of the best model E_b (C, 3, 3), refit on its consensus set
+    with the weighted 8-point fit (used where it succeeds on >= 8 inliers;
+    the inlier SET is recomputed afterwards so acceptance and the reported
+    count agree), as the result dict of the mono RANSAC functions."""
+    best_inl = (minimal.sampson_error_soa(E_b, f1, f2) < threshold) & valid
     E_r, ok_r = minimal.essential_8pt_soa(f1, f2, best_inl.to(f1.dtype))
-    use = ok_r & (torch.sum(best_inl, dim=1) >= k_sample)
-    E_b = torch.where(use[:, None, None], E_r, E_best)
-    err_b = minimal.sampson_error_soa(E_b, f1, f2)
-    best_inl = (err_b < threshold) & valid
+    use = ok_r & (torch.sum(best_inl, dim=1) >= 8)
+    E_b = torch.where(use[:, None, None], E_r, E_b)
+    best_inl = (minimal.sampson_error_soa(E_b, f1, f2) < threshold) & valid
     n_inl = torch.sum(best_inl, dim=1, dtype=torch.int32)
     return {
         "E": E_b,
@@ -202,3 +205,55 @@ def ransac_essential(key, f1: torch.Tensor, f2: torch.Tensor,
         "n_inliers": n_inl,
         "ok": n_inl >= min_inliers,
     }
+
+
+def ransac_essential_5pt(key, f1: torch.Tensor, f2: torch.Tensor,
+                         valid: torch.Tensor, threshold: float = 1e-6,
+                         n_hyp: int = 200, min_inliers: int = 10,
+                         n_starts: int = 8, gn_iters: int = 8,
+                         preselect_pts: int = 64, preselect_models: int = 128,
+                         u: torch.Tensor | None = None):
+    """2d2d monocular RANSAC with the 5-point minimal solver. Each minimal
+    sample yields `n_starts` essential-matrix candidates (the solver's
+    multiple roots), all of them scored.
+
+    Scoring is preemptive: every (hypothesis, start) model is scored on
+    the first `preselect_pts` VALID correspondences (the head of the
+    stable valid-first permutation), each hypothesis's best start
+    survives, and the `preselect_models` best hypotheses are projected
+    onto the essential manifold and scored on all K points. Set
+    preselect_pts=0 (or preselect_models >= n_hyp) to score exhaustively.
+
+    f1, f2: (C, 3, K) SoA unit bearings; valid: (C, K); threshold: squared
+    Sampson error. `u` replaces the sample draws (`_masked_sample_parts`).
+    Returns dict with E (C, 3, 3), inliers (C, K), n_inliers (C,), ok (C,).
+    """
+    picks, order, inv_order = _masked_sample_parts(key, valid, n_hyp, 5, u)
+    H, S = n_hyp, n_starts
+    g1 = gather.sample_gather_perm_t(f1, picks, order, inv_order)  # (C,15,H)
+    g2 = gather.sample_gather_perm_t(f2, picks, order, inv_order)
+    E_rows = fivept.fivept_models(g1, g2, n_starts=S, gn_iters=gn_iters,
+                                  project=False)              # (C, 9 S, H)
+    K = f1.shape[-1]
+    if preselect_pts and H > preselect_models and K > 2 * preselect_pts:
+        # the preselect points are the first P entries of the valid-first
+        # permutation, gathered as P one-point samples (the JAX package
+        # selects them with a one-hot matrix product)
+        P = preselect_pts
+        head = order[:, :P, None].contiguous()                # (C, P, 1)
+        f1p = gather.sample_gather_t(f1, head)                # (C, 3, P)
+        f2p = gather.sample_gather_t(f2, head)
+        m_valid = torch.sum(valid, dim=1, dtype=torch.int32)
+        validp = (torch.arange(P, device=valid.device)[None, :]
+                  < m_valid[:, None])
+        counts_hs = fivept.presel_counts(E_rows, f1p, f2p, validp, threshold,
+                                         S)
+        E_sel_raw, _flat_idx = fivept.select_models(
+            E_rows, counts_hs, preselect_models, S)
+        E_sel, _okp = minimal._project_essential(E_sel_raw)
+    else:
+        E_sel = fivept.models_to_flat(fivept._project_rows(E_rows, S), S)
+    counts = score.essential_counts(E_sel.contiguous(), f1, f2, valid,
+                                    threshold)
+    E_b = _take_best(E_sel, score.first_argmax(counts))
+    return _essential_result(E_b, f1, f2, valid, threshold, min_inliers)

@@ -22,6 +22,16 @@ from . import _build
 _EPS = 1e-12
 
 
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the FIRST maximum along the last axis, as `jnp.argmax`
+    gives it. Inlier counts are integers and tie often; `torch.argmax`
+    promises no particular index among equal maxima on the card."""
+    n = x.shape[-1]
+    ar = torch.arange(n, device=x.device)
+    mx = torch.max(x, dim=-1, keepdim=True).values
+    return torch.min(torch.where(x == mx, ar, n), dim=-1).values
+
+
 def _mat_rows(M, x):
     """Rows of M x for M (C, H, 3, 3) and x (C, 3, K), each (C, H, K),
     summed left to right."""

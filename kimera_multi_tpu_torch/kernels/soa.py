@@ -341,20 +341,137 @@ def essential8(f1s, f2s):
                 s = s + rows[m][a] * rows[m][b]
             N[a][b] = s
             N[b][a] = s
-    e = smallest_eigvec_soa(N)
-    E = [[e[3 * i + j] for j in range(3)] for i in range(3)]
-    # project to the essential manifold: E <- u1 v1^T + u2 v2^T where
-    # (v1, v2) are the top-2 eigenvectors of E^T E
-    A = [[sum(E[l][i] * E[l][j] for l in range(3)) for j in range(3)]
+    return project_essential_soa(smallest_eigvec_soa(N))
+
+
+def project_essential_soa(E):
+    """Project a row-major 9-entry SoA matrix onto the essential manifold:
+    E <- u1 v1^T + u2 v2^T where (v1, v2) are the top-2 eigenvectors of
+    E^T E. Returns (Eproj nested 3x3 list, ok)."""
+    Em = [[E[3 * i + j] for j in range(3)] for i in range(3)]
+    A = [[sum(Em[l][i] * Em[l][j] for l in range(3)) for j in range(3)]
          for i in range(3)]
     evals, V = eigh3x3(A)
     s1 = torch.sqrt(torch.clamp(evals[0], min=0.0))
     s2 = torch.sqrt(torch.clamp(evals[1], min=0.0))
     v1, v2 = V[0], V[1]
-    u1 = _unit(mat3_vec(E, v1))
-    u2r = mat3_vec(E, v2)
+    u1 = _unit(mat3_vec(Em, v1))
+    u2r = mat3_vec(Em, v2)
     u2 = _unit(v_sub(u2r, v_scale(u1, v_dot(u2r, u1))))
     Eproj = [[u1[i] * v1[j] + u2[i] * v2[j] for j in range(3)]
              for i in range(3)]
     ok = s2 > 1e-6 * torch.clamp(s1, min=_EPS)
     return Eproj, ok
+
+
+# ---------------------------------------------------------------------------
+# 5-point essential polish: Gauss-Newton on S^3 intersecting the essential
+# variety (mirror of soa.essential5_polish_soa of the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _sum(terms):
+    """Left-to-right sum, first term first (no leading `0 +`): the order in
+    which csrc/fivept.cu adds, so that kernel and plain version round
+    alike."""
+    it = iter(terms)
+    s = next(it)
+    for t in it:
+        s = s + t
+    return s
+
+
+def _gn_step(B9, qc, step_cap, damping):
+    """One Gauss-Newton step of `essential5_polish_soa`. Every operation is
+    one elementwise tensor op, in the order csrc/fivept.cu repeats."""
+    E = [_sum(qc[s] * B9[s][i] for s in range(4)) for i in range(9)]
+
+    def at(M, r, c):
+        return M[3 * r + c]
+
+    # E E^T and E^T E (symmetric 3x3, as nested lists)
+    EEt = [[_sum(at(E, r, k) * at(E, c, k) for k in range(3))
+            for c in range(3)] for r in range(3)]
+    EtE = [[_sum(at(E, k, r) * at(E, k, c) for k in range(3))
+            for c in range(3)] for r in range(3)]
+    tr = EEt[0][0] + EEt[1][1] + EEt[2][2]
+
+    # residual r = [det(E), vec(2 EEt E - tr E)]
+    det = (at(E, 0, 0) * (at(E, 1, 1) * at(E, 2, 2)
+                          - at(E, 1, 2) * at(E, 2, 1))
+           - at(E, 0, 1) * (at(E, 1, 0) * at(E, 2, 2)
+                            - at(E, 1, 2) * at(E, 2, 0))
+           + at(E, 0, 2) * (at(E, 1, 0) * at(E, 2, 1)
+                            - at(E, 1, 1) * at(E, 2, 0)))
+    res = [det] + [2.0 * _sum(EEt[r][k] * at(E, k, c) for k in range(3))
+                   - tr * at(E, r, c) for r in range(3) for c in range(3)]
+
+    # cofactor matrix (d det / d E_rc)
+    cof = [[at(E, (r + 1) % 3, (c + 1) % 3) * at(E, (r + 2) % 3, (c + 2) % 3)
+            - at(E, (r + 1) % 3, (c + 2) % 3) * at(E, (r + 2) % 3, (c + 1) % 3)
+            for c in range(3)] for r in range(3)]
+
+    # analytic Jacobian columns (10 x 4)
+    J = []
+    for s in range(4):
+        V = B9[s]
+        d_det = _sum(cof[r][c] * at(V, r, c)
+                     for r in range(3) for c in range(3))
+        trEV = _sum(E[i] * V[i] for i in range(9))
+        VtE = [[_sum(at(V, k, r) * at(E, k, c) for k in range(3))
+                for c in range(3)] for r in range(3)]
+        col = [d_det]
+        for r in range(3):
+            for c in range(3):
+                m_a = _sum(at(V, r, k) * EtE[k][c] for k in range(3))
+                m_b = _sum(at(E, r, k) * VtE[k][c] for k in range(3))
+                m_c = _sum(EEt[r][k] * at(V, k, c) for k in range(3))
+                col.append(2.0 * (m_a + m_b + m_c)
+                           - 2.0 * trEV * at(E, r, c) - tr * at(V, r, c))
+        J.append(col)
+
+    # project the radial gauge direction out of J: J_k -= <J_k, q> q
+    for k in range(10):
+        dk = _sum(J[s][k] * qc[s] for s in range(4))
+        for s in range(4):
+            J[s][k] = J[s][k] - dk * qc[s]
+
+    # normal equations (4x4) + damping
+    JtJ = [[_sum(J[i][k] * J[j][k] for k in range(10)) for j in range(4)]
+           for i in range(4)]
+    for i in range(4):
+        JtJ[i][i] = JtJ[i][i] + damping
+    g = [_sum(J[i][k] * res[k] for k in range(10)) for i in range(4)]
+
+    L = chol_soa(JtJ)
+    y = tri_solve_soa(L, [-gi for gi in g], lower=True)
+    dq = tri_solve_soa(L, y, lower=False)
+    # project the gauge out of the step, cap, renormalize
+    dq_q = _sum(dq[s] * qc[s] for s in range(4))
+    dq = [dq[s] - dq_q * qc[s] for s in range(4)]
+    n = torch.sqrt(_sum(d * d for d in dq))
+    # step_cap / x is x.reciprocal() * step_cap in torch; the kernel
+    # computes the same two roundings
+    scale = torch.clamp(step_cap / torch.clamp(n, min=_EPS), max=1.0)
+    qn = [qc[s] + dq[s] * scale for s in range(4)]
+    nq = torch.clamp(torch.sqrt(_sum(c * c for c in qn)), min=_EPS)
+    return [c / nq for c in qn]
+
+
+def essential5_polish_soa(B9, q, n_iters: int = 16, step_cap: float = 0.4,
+                          damping: float = 1e-6):
+    """Multi-root GN polish for the 5-point problem, lane-major.
+
+    E(q) = sum_s q_s B_s must satisfy the 10 essential constraints
+    (det(E) = 0 and 2 E E^T E - tr(E E^T) E = 0). B9: list over s=0..3 of
+    9-entry row-major lists of tensors; q: list of 4 tensors broadcastable
+    against them (callers put the multi-start axis in q only). The
+    Jacobian is analytic (d det = <cof(E), V>; dC[V] = 2(V E^T E + E V^T E
+    + E E^T V) - 2 tr(E V^T) E - tr(E E^T) V). The constraint system is
+    homogeneous, so the radial direction is projected out of J and the
+    step; steps are capped at `step_cap` and q is renormalized.
+    """
+    q = list(q)
+    for _ in range(n_iters):
+        q = _gn_step(B9, q, step_cap, damping)
+    return q

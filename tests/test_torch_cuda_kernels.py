@@ -1,21 +1,23 @@
-"""The five CUDA kernels of the port against their plain PyTorch versions,
+"""The eight CUDA kernels of the port against their plain PyTorch versions,
 on the card. These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 Run them on a machine with a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
 Tolerance: none. Matcher and gathers are integer / copy operations; the
-scoring kernels are built without FMA contraction and repeat the plain
-versions' operation order, so counts are equal. Shapes are ragged on
-purpose (K not a multiple of 32, H not a multiple of the block's
-hypothesis tile, Kq != Kt)."""
+scoring kernels and the five-point model kernel are built without FMA
+contraction and repeat the plain versions' operation order, so counts and
+models are equal. Shapes are ragged on purpose (K not a multiple of 32, H
+not a multiple of the block's hypothesis tile, Kq != Kt, P over one
+shared-memory tile)."""
 
 import numpy as np
 import pytest
 import torch
 
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
-from kimera_multi_tpu_torch.kernels import _build, gather, hamming, score
+from kimera_multi_tpu_torch.kernels import (_build, fivept, gather, hamming,
+                                            score)
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +94,64 @@ def test_counts(dev, K, H):
                        score.essential_counts_ref(E, f1, f2, valid, 0.05))
     with pytest.raises(ValueError):
         score.rigid_counts(R.transpose(-1, -2), t, p, q, valid, 6.0)
+
+
+@pytest.mark.parametrize("k,K,H", [(5, 75, 500), (1, 704, 64)])
+def test_sample_gather_t(dev, k, K, H):
+    rs = np.random.default_rng(3)
+    C = 4
+    data = torch.from_numpy(rs.normal(size=(C, 3, K)).astype(np.float32))
+    picks = torch.from_numpy(rs.integers(0, K, (C, H, k)).astype(np.int32))
+    picks[0, 0, 0], picks[1, 3, k - 1] = -2, K + 9  # clamped
+    data, picks = data.to(dev), picks.to(dev)
+    n0 = _build.launches["sample_gather_t"]
+    got = gather.sample_gather_t(data, picks)
+    assert _build.launches["sample_gather_t"] == n0 + 1
+    assert torch.equal(got, gather.sample_gather_t_ref(data, picks))
+
+
+def _fivept_samples(rs, C, H):
+    P = rs.uniform(-3, 3, (C, H, 5, 3))
+    P[..., 2] = rs.uniform(3, 9, (C, H, 5))
+    R = _so3_exp_np(rs.normal(0, 0.3, (C, 3))).astype(np.float64)
+    P2 = np.einsum("chkj,cji->chki", P - 0.3, R)
+    f = [X / np.linalg.norm(X, axis=-1, keepdims=True) for X in (P, P2)]
+    return [torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 3, 1).reshape(C, 15, H).astype(np.float32)))
+        for x in f]
+
+
+@pytest.mark.parametrize("H,gn_iters", [(37, 0), (500, 8), (130, 3)])
+def test_fivept_models(dev, H, gn_iters):
+    rs = np.random.default_rng(4)
+    f1, f2 = (x.to(dev) for x in _fivept_samples(rs, 3, H))
+    # a degenerate hypothesis: all five samples the same bearing pair
+    f1[1, :, 0] = f1[1, 0:3, 0].repeat(5)
+    f2[1, :, 0] = f2[1, 0:3, 0].repeat(5)
+    n0 = _build.launches["fivept_models"]
+    got = fivept.fivept_models(f1, f2, n_starts=8, gn_iters=gn_iters,
+                               project=False)
+    assert _build.launches["fivept_models"] == n0 + 1
+    ref = fivept._fivept_models_ref(f1, f2, 8, gn_iters, project=False)
+    assert got.shape == (3, 72, H)
+    assert torch.equal(got, ref), int((got != ref).sum())
+
+
+@pytest.mark.parametrize("H,S,P", [(500, 8, 64), (45, 3, 300)])
+def test_presel_counts(dev, H, S, P):
+    rs = np.random.default_rng(5)
+    C = 3
+    E_rows = rs.normal(size=(C, 9 * S, H)).astype(np.float32)
+    f1 = rs.normal(size=(C, 3, P)).astype(np.float32)
+    f2 = rs.normal(size=(C, 3, P)).astype(np.float32)
+    f1 /= np.linalg.norm(f1, axis=1, keepdims=True)
+    f2 /= np.linalg.norm(f2, axis=1, keepdims=True)
+    valid = rs.uniform(size=(C, P)) < 0.8
+    valid[0] = False
+    args = [torch.from_numpy(x).to(dev) for x in (E_rows, f1, f2, valid)]
+    n0 = _build.launches["presel_counts"]
+    got = fivept.presel_counts(*args, 0.05, S)
+    assert _build.launches["presel_counts"] == n0 + 1
+    assert got.shape == (C, H, S) and got.dtype == torch.int32
+    assert torch.equal(got, fivept.presel_counts_ref(*args, 0.05, S))
+    assert int(got.sum()) > 0

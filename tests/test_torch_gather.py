@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from kimera_multi_tpu.kernels import gather as jg
-from kimera_multi_tpu_torch.kernels import gather as tg
+from kimera_multi_tpu.kernels import gather as jg, ransac as jr
+from kimera_multi_tpu_torch.kernels import gather as tg, ransac as tr
 
 
 def _inputs(k, C=3, K=75, H=40, seed=0):
@@ -36,6 +36,31 @@ def test_sample_gather_perm_t(k, interpret):
     # the definition itself
     c, m, i, h = 1, k - 1, 2, 7
     assert out[c, m * 3 + i, h] == data[c, i, order[c, picks[c, h, m]]]
+
+
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("interpret", [False, True])
+def test_sample_gather_t(k, interpret):
+    data, picks, _, _ = _inputs(k, seed=3)
+    out = tg.sample_gather_t(torch.from_numpy(data), torch.from_numpy(picks))
+    assert tuple(out.shape) == (3, k * 3, 40) and out.dtype == torch.float32
+    for c in range(data.shape[0]):
+        ref = jg.sample_gather_t(jnp.asarray(data[c]), jnp.asarray(picks[c]),
+                                 interpret=interpret)
+        np.testing.assert_array_equal(np.asarray(ref), out[c].numpy())
+    c, m, i, h = 2, k - 1, 1, 11
+    assert out[c, m * 3 + i, h] == data[c, i, picks[c, h, m]]
+
+
+def test_gather_samples_matches_jax():
+    data, picks, _, _ = _inputs(5, seed=4)
+    got = tr._gather_samples(torch.from_numpy(data), torch.from_numpy(picks))
+    for c in range(data.shape[0]):
+        ref = jr._gather_samples(jnp.asarray(data[c]), jnp.asarray(picks[c]))
+        for m in range(5):
+            for i in range(3):
+                np.testing.assert_array_equal(np.asarray(ref[m][i]),
+                                              got[m][i][c].numpy())
 
 
 @pytest.mark.parametrize("Kin,Kout", [(75, 75), (96, 70)])
@@ -73,3 +98,6 @@ def test_out_of_range_indices_are_clamped():
                                     (data, picks, order, inv)))
     assert out[0, 0, 0] == data[0, 0, order[0, 0]]
     assert out[1, 3 + 2, 2] == data[1, 2, order[1, K - 1]]
+    out = tg.sample_gather_t(torch.from_numpy(data), torch.from_numpy(picks))
+    assert out[0, 0, 0] == data[0, 0, 0]
+    assert out[1, 3 + 2, 2] == data[1, 2, K - 1]

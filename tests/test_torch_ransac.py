@@ -21,7 +21,7 @@ from kimera_multi_tpu.core import rng as jrng
 from kimera_multi_tpu.kernels import ransac as jr
 from kimera_multi_tpu_torch.core import rng as trng
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
-from kimera_multi_tpu_torch.kernels import ransac as tr
+from kimera_multi_tpu_torch.kernels import ransac as tr, score as ts
 
 C, K, H = 4, 80, 48
 # squared Sampson threshold of the mono tests: the 3e-4 rad bearing noise
@@ -51,7 +51,7 @@ def _masks(kind, seed=0):
 
 
 @pytest.mark.parametrize("kind", ["many", "few", "starved"])
-@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("k", [3, 8, 5])
 def test_masked_sample_parts(kind, k):
     valid = _masks(kind)
     kj, kt = _keys(1, jrng.Stream.RANSAC_MONO)
@@ -85,8 +85,8 @@ def test_injected_draws_equal_keyed_draws():
 
 def test_first_argmax_takes_first_of_ties():
     x = torch.tensor([[1, 5, 5, 2], [0, 0, 0, 0], [3, 1, 3, 9]])
-    assert tr._first_argmax(x).tolist() == [1, 0, 3]
-    np.testing.assert_array_equal(tr._first_argmax(x).numpy(),
+    assert ts.first_argmax(x).tolist() == [1, 0, 3]
+    np.testing.assert_array_equal(ts.first_argmax(x).numpy(),
                                   np.asarray(jnp.argmax(jnp.asarray(
                                       x.numpy()), axis=1)))
 

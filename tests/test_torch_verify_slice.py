@@ -31,6 +31,7 @@ from kimera_multi_tpu_torch import convert
 from kimera_multi_tpu_torch.core import backend
 from kimera_multi_tpu_torch.frontend import batched as tbatched, dlc as tdlc
 from kimera_multi_tpu_torch.io import synthetic
+from kimera_multi_tpu_torch.kernels import ransac as tr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_HYP = 64
@@ -101,10 +102,17 @@ def test_results_do_not_depend_on_batching(stores):
 
 
 def test_use_5pt_raises():
-    with pytest.raises(NotImplementedError, match="5-point"):
-        tbatched.make_verifier(tdlc.FrontendConfig(), device="cpu")
-    assert tdlc.FrontendConfig().use_5pt is True   # default as in JAX
+    """use_5pt=True is the default, as in the JAX package, and the 5-point
+    gate raises only on a setting it cannot run: more starts than its start
+    table holds (tests/test_torch_ransac5.py holds the gate itself against
+    the JAX package)."""
+    assert tdlc.FrontendConfig().use_5pt is True
     assert tdlc.FrontendConfig._fields == jdlc.FrontendConfig._fields
+    f = torch.nn.functional.normalize(torch.rand(1, 3, 12), dim=1)
+    valid = torch.ones(1, 12, dtype=torch.bool)
+    with pytest.raises(ValueError, match="n_starts"):
+        tr.ransac_essential_5pt(None, f, f, valid, n_hyp=4, n_starts=17,
+                                u=torch.rand(1, 4, 5))
 
 
 def test_asking_for_a_missing_card_raises():
