@@ -3,17 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc,
-holds each of them against its plain PyTorch version at the shapes of the
-main path (and at ragged shapes), then drives the main path — loop-closure
-verification, `make_verifier(FrontendConfig())` with the default 5-point
-mono gate — over keyframe stores of 6 robots x 1024 keyframes x 704
-features in chunks of 1024 candidates with 500 RANSAC hypotheses, and the
-8-point mono gate (`FrontendConfig(use_5pt=False)`) over two of the
-chunks. Each run is checked against the generator's ground truth and
-against the same call forced through the plain versions, and kernels
-(device time) and stages (as the caller sees them) are timed with CUDA
-events.
+Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
+and holds each of the nine against its plain PyTorch version at the shapes
+of its path (and at ragged shapes). Then it drives three paths:
+
+  * loop-closure verification, `make_verifier(FrontendConfig())` with the
+    default 5-point mono gate, over keyframe stores of 6 robots x 1024
+    keyframes x 704 features in chunks of 1024 candidates with 500 RANSAC
+    hypotheses, and the 8-point mono gate (`use_5pt=False`) over two of
+    the chunks; checked against the generator's ground truth and against
+    the same call forced through the plain versions;
+  * the DB-wide Hamming top-2 search `hamming_top2_pallas` (its own entry
+    point): the 704 descriptors of one keyframe against every descriptor
+    the fleet's stores hold (4,325,376 rows), checked against its plain
+    version and for the self-match the database contains;
+  * the whole front-end, `BatchedFrontend(6, 1024, vocab,
+    FrontendConfig()).process_all`, on `make_world(6, 1024, 704, seed=0)`
+    with a vocabulary built as the JAX package's `cli/run.py` builds it:
+    BoW vectors, the detection loop, compaction, verification. Checked:
+    no accepted loop joins keyframes of different ground-truth places, and
+    the detection on the card equals the detection on the CPU for
+    `make_world(6, 256, 704, seed=1)`.
+
+Kernel counts are set to 0 just before each path and read just after;
+kernels (device time) and stages (as the caller sees them) are timed with
+CUDA events or the host clock around synchronised work.
 
 Every phase is fatal: a kernel that does not build, launch or agree, a
 wrong result, or no GPU ends the run with a non-zero exit code. The last
@@ -22,10 +36,11 @@ it are JSON objects {"kernels": [...]} and {"stages": {...}}.
 
     python3 chip_smoke.py --profile
 
-also traces one chunk of the default configuration with torch.profiler
-and prints a {"profile": {...}} line: device kernels launched per chunk,
-the device's busy time and idle share within the chunk, and the kernels
-that take most of the device time.
+also traces one verification chunk of the default configuration and a
+window of detection steps with torch.profiler and prints {"profile": ...}
+and {"profile_detect": ...} lines: device kernels launched per chunk (per
+step), the device's busy time and idle share, and the kernels that take
+most of the device time.
 """
 
 from __future__ import annotations
@@ -47,12 +62,16 @@ SUB_PATH = 32       # candidates of the whole-path plain comparison
 N_STARTS, GN_ITERS, PRESEL_PTS, PRESEL_MODELS = 8, 8, 64, 128
 
 # Peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 flop/s outside
-# the tensor cores. Integer XOR/POPC/ADD have no published figure; they are
-# counted as lane-instructions at half the f32 flop rate (an FMA counts as
-# two flops but is one instruction).
+# the tensor cores, dense int8 tensor-core operations/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-PEAK_INT = PEAK_F32 / 2
+PEAK_INT8 = 1979e12
+# Integer pipes per SM and clock for compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 32-bit add and
+# bitwise operations 64, population count 16; 132 SMs at the 1.98 GHz boost
+# clock.
+N_SM, CLOCK_HZ = 132, 1.98e9
+INT_PER_CLK, POPC_PER_CLK = 64, 16
 # f32 operations of one residual: rigid (R p + t, difference, squared
 # norm, compare) and Sampson (E f1, two rows of E^T f2, numerator,
 # denominator, division, compare)
@@ -134,11 +153,38 @@ def elementwise_ops(fn) -> int:
     return Count.n
 
 
+def hamming_bound(pairs: int, n_bytes: int):
+    """Least time of a Hamming search over `pairs` (query, target) pairs of
+    256-bit rows, by two routes: packed words (per pair 8 XOR + 8 POPC + 8
+    ADD on the integer pipes) and an int8 tensor-core product of the {0,1}
+    bits (2 x 256 operations per pair, exact with int32 sums), each no
+    faster than its bytes. The bound is the faster route. Returns
+    (bound_ms, bound_by, ops of that route, routes)."""
+    words = 8 * pairs
+    popc_ms = words / (POPC_PER_CLK * N_SM * CLOCK_HZ) * 1e3
+    xor_add_ms = 2 * words / (INT_PER_CLK * N_SM * CLOCK_HZ) * 1e3
+    tc_ops = 2 * 256 * pairs
+    tc_ms = tc_ops / PEAK_INT8 * 1e3
+    bytes_ms = n_bytes / PEAK_BYTES * 1e3
+    popc_route = max(popc_ms, xor_add_ms, bytes_ms)
+    tc_route = max(tc_ms, bytes_ms)
+    best = min(popc_route, tc_route)
+    if tc_route <= popc_route:
+        ops, by = tc_ops, "operations" if tc_ms >= bytes_ms else "bytes"
+    else:
+        ops, by = 3 * words, "operations" if popc_route > bytes_ms else "bytes"
+    return best, by, ops, {
+        "popc_ms": popc_ms, "xor_add_ms": xor_add_ms,
+        "popc_route_ms": popc_route, "int8_tensor_core_ms": tc_ms,
+        "int8_route_ms": tc_route, "bytes_ms": bytes_ms,
+        "popc_ops": words, "xor_add_ops": 2 * words, "int8_ops": tc_ops,
+        "clock_hz": CLOCK_HZ, "sms": N_SM}
+
+
 def profile_chunk(full, full_ms: float) -> dict:
     """One chunk of the main path under torch.profiler: how many device
     kernels it launches, how long the device is busy, which kernels take
     the time. `full_ms` is the chunk's time without the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     full()
@@ -147,9 +193,59 @@ def profile_chunk(full, full_ms: float) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         full()
         torch.cuda.synchronize()
+    return device_summary(prof, full_ms)
+
+
+def profile_detect_steps(detect, step_ms: float, first: int,
+                         n: int) -> dict:
+    """`n` steps around step `first` of one whole detection run under
+    torch.profiler. The loop's one call per step of
+    `lcd.normalize_scores` marks the step boundaries (the profiler's
+    schedule records only that window); the library is left as it is once
+    the run ends. `step_ms` is a step's time without the profiler."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from kimera_multi_tpu_torch.frontend import lcd
+
+    real = lcd.normalize_scores
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=first - 1, warmup=1, active=n,
+                                   repeat=1)) as prof:
+        def marked(*args, **kwargs):
+            prof.step()
+            return real(*args, **kwargs)
+
+        lcd.normalize_scores = marked
+        try:
+            detect()
+            torch.cuda.synchronize()
+        finally:
+            lcd.normalize_scores = real
+    out = device_summary(prof, step_ms * n)
+    if "device_kernels_per_chunk" in out:
+        out = {"device_kernels_per_step":
+               out.pop("device_kernels_per_chunk") / n,
+               "device_busy_ms_per_step": out["device_busy_ms"] / n,
+               "step_ms_unprofiled": step_ms, **out}
+        out.pop("chunk_ms_unprofiled")
+    # the window runs from one call of normalize_scores to the n-th after
+    out["window_steps"] = (f"{n} steps, from the middle of step {first - 1} "
+                           f"to the middle of step {first + n - 1}")
+    return out
+
+
+def device_summary(prof, wall_ms: float) -> dict:
+    """Device kernels of a finished profile: their count, the device's busy
+    time, the idle share against `wall_ms` (the same work's time without
+    the profiler), which kernels take the time."""
+    from torch.autograd import DeviceType
+
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # the schedule's own step ranges are annotations, not kernels
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.name.startswith("ProfilerStep")):
             continue
         us = getattr(e, "device_time", None)
         if us is None:
@@ -167,8 +263,8 @@ def profile_chunk(full, full_ms: float) -> dict:
         "device_kernels_per_chunk": sum(n for n, _ in by_name.values()),
         "distinct_kernels": len(by_name),
         "device_busy_ms": busy_ms,
-        "chunk_ms_unprofiled": full_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / full_ms),
+        "chunk_ms_unprofiled": wall_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top_kernels": [{"name": k[:80], "count": n, "ms": t / 1e3}
                         for k, (n, t) in top],
         "hand_written_kernels": [
@@ -197,6 +293,252 @@ def clean_fivept_samples(C: int, H: int, seed: int):
         f = X / np.linalg.norm(X, axis=-1, keepdims=True)
         out.append(torch.from_numpy(np.ascontiguousarray(
             f.transpose(0, 2, 3, 1).reshape(C, 15, H).astype(np.float32))))
+    return out
+
+
+def db_top2_phase(desc_store, check) -> dict:
+    """K2 through its own entry point at the DB-wide shape: the descriptors
+    of keyframe (robot 0, frame 0) against every descriptor of the stores,
+    then ragged shapes with ties. Returns the kernel's row."""
+    from kimera_multi_tpu_torch.kernels import _build, hamming
+
+    dev = desc_store.device
+    K = desc_store.shape[2]
+    flat = desc_store.reshape(-1, 32)
+    Kt = flat.shape[0]
+    bits_t = torch.empty((Kt, 256), dtype=torch.bfloat16, device=dev)
+    step = 1 << 20
+    for lo in range(0, Kt, step):
+        bits_t[lo:lo + step] = hamming.unpack_bits(
+            flat[lo:lo + step]).to(torch.bfloat16)
+    bits_q = bits_t[:K].clone()
+    Kq = K
+    log(f"DB-wide top-2 (hamming_top2_pallas, tile_q=64, tile_t=512): "
+        f"{Kq} queries against {Kt} rows, {bits_t.numel() * 2 / 1e9:.2f} GB "
+        f"of bf16 bits on the card")
+    _build.reset_launches()
+    got = hamming.hamming_top2_pallas(bits_q, bits_t, tile_q=64, tile_t=512)
+    torch.cuda.synchronize()
+    launches = _build.launches["hamming_top2"]
+    if launches != 1 or sum(_build.launches.values()) != 1:
+        fail(f"hamming_top2_pallas launched {dict(_build.launches)}")
+    ref = hamming._hamming_top2_ref(bits_q, bits_t)
+    torch.cuda.synchronize()
+    err = check("hamming_top2", got, ref, f"Kq={Kq} Kt={Kt} (DB-wide)")
+    rows = torch.arange(Kq, device=dev, dtype=torch.int32)
+    n_own = int((got[2] == rows).sum())
+    if not (bool((got[0] == 0).all()) and bool((got[2] <= rows).all())):
+        fail("DB-wide top-2: a query of the database did not find itself "
+             "(or an equal earlier row) at distance 0")
+    log(f"  hamming_top2 self-match: d1 == 0 for all {Kq} queries, i1 is "
+        f"the query's own row for {n_own} (an equal earlier row otherwise)")
+
+    # ragged sets: duplicated rows (ties), a tie on a split boundary
+    rs = np.random.default_rng(5)
+    for Kq_, Kt_, n_splits in ((64, 512, None), (200, 3000, 7),
+                               (704, 8192, 5)):
+        t = rs.integers(0, 256, (Kt_, 32), dtype=np.uint8)
+        t[1::2] = t[0::2]
+        q = t[rs.integers(0, Kt_, Kq_)].copy()
+        q[:, 9] ^= rs.integers(0, 256, Kq_, dtype=np.uint8)
+        split = hamming.top2_split_rows(Kq_, Kt_, n_splits, dev)
+        t[split - 1] = q[0]
+        t[split] = q[0]
+        bq = hamming.unpack_bits(torch.from_numpy(q).to(dev)).to(
+            torch.bfloat16)
+        bt = hamming.unpack_bits(torch.from_numpy(t).to(dev)).to(
+            torch.bfloat16)
+        g = hamming._hamming_top2(bq, bt, n_splits)
+        check("hamming_top2", g, hamming._hamming_top2_ref(bq, bt),
+              f"Kq={Kq_} Kt={Kt_} split={split} (ties)")
+        if int(g[2][0]) != split - 1 or float(g[1][0]) != 0.0:
+            fail("hamming_top2: a tie across a split boundary did not keep "
+                 "the first index")
+
+    n_bytes = (Kq + Kt) * 256 * 2 + Kq * 12
+    b_ms, b_by, ops, routes = hamming_bound(Kq * Kt, n_bytes)
+    ms = device_ms(lambda: hamming.hamming_top2_pallas(bits_q, bits_t, 64,
+                                                       512), iters=10)
+    plain_ms = time_ms(lambda: hamming._hamming_top2_ref(bits_q, bits_t),
+                       iters=2, warmup=1)
+    chunk = 65536
+
+    def library():
+        for lo in range(0, Kt, chunk):
+            torch.mm(bits_q, bits_t[lo:lo + chunk].T)
+
+    library_ms = device_ms(library, iters=5)
+    del bits_t
+    torch.cuda.empty_cache()
+    log(f"  hamming_top2           {ms:8.4f} ms  plain {plain_ms:9.3f} ms  "
+        f"bound {b_ms:.4f} ms ({b_by}; popc route "
+        f"{routes['popc_route_ms']:.3f}, int8 route "
+        f"{routes['int8_route_ms']:.3f})  cuBLAS bf16 product {library_ms:.3f}")
+    return {
+        "name": "hamming_top2", "route": "cuda",
+        "source": "kimera_multi_tpu_torch/kernels/csrc/hamming.cu",
+        "replaces": "kimera_multi_tpu/kernels/hamming.py:308",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "library_call": "bits_q @ bits_t.T in bf16 over chunks of 65536 "
+                        "targets (cuBLAS; no top-2)",
+        "bytes": n_bytes, "ops": ops, "bound_routes": routes,
+        "path": "its own entry point, hamming_top2_pallas; no path of the "
+                "JAX package calls it",
+        "shape": f"Kq={Kq} Kt={Kt} (one keyframe against the fleet's "
+                 f"descriptors)"}
+
+
+def frontend_phase(dev, profile: bool) -> dict:
+    """The detection slice at full size: BatchedFrontend(6, 1024, vocab,
+    FrontendConfig()).process_all on make_world(6, 1024, 704, seed=0),
+    gated on ground-truth places; then the card's detection against the
+    CPU's on make_world(6, 256, 704, seed=1). Returns the stage entries."""
+    from kimera_multi_tpu_torch.frontend import batched, vocab as vocab_mod
+    from kimera_multi_tpu_torch.frontend.dlc import FrontendConfig
+    from kimera_multi_tpu_torch.io import sim_world
+    from kimera_multi_tpu_torch.kernels import _build
+
+    def world_and_vocab(R, T, seed):
+        w = sim_world.make_world(n_robots=R, n_steps=T, features_per_kf=704,
+                                 seed=seed)
+        # the vocabulary as the JAX package's cli/run.py builds it
+        corpus = w.descriptors[w.obs_valid].reshape(-1, 32)
+        sub = corpus[:: max(1, len(corpus) // 4000)]
+        return w, vocab_mod.build_vocabulary(sub, k=8, depth=3, seed=seed)
+
+    t0 = time.time()
+    world, voc = world_and_vocab(6, 1024, 0)
+    host_s = time.time() - t0
+    cfg = FrontendConfig()
+    stores = tuple(torch.from_numpy(x).to(dev) for x in (
+        world.descriptors, world.bearings_local, world.landmarks_local,
+        world.obs_valid))
+    R, T, K = world.obs_valid.shape
+    log(f"front-end: world {R} x {T} x {K} and vocabulary (k=8, depth 3, "
+        f"{int(voc.node_valid[-1].sum())} words) made on the host in "
+        f"{host_s:.1f} s; FrontendConfig() (ransac_hyp={cfg.ransac_hyp}, "
+        f"use_5pt={cfg.use_5pt})")
+
+    def run():
+        fe = batched.BatchedFrontend(R, T, voc, cfg, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = fe.process_all(*stores)
+        torch.cuda.synchronize()
+        return fe, dict(stats, t_process_all=time.perf_counter() - t)
+
+    _build.reset_launches()
+    fe, stats = run()
+    launches = dict(_build.launches)
+    log(f"front-end path: {stats['n_candidates']} candidates from "
+        f"{stats['n_keyframes']} keyframes, {len(fe.loops)} accepted, "
+        f"{stats['t_process_all']:.2f} s; kernel launches {launches}")
+    if stats["n_candidates"] == 0:
+        fail("the front-end detected no candidate")
+    for name, n in launches.items():
+        if name == "hamming_top2":
+            if n:
+                fail("process_all launched the DB-wide top-2 kernel")
+        elif n == 0:
+            fail(f"process_all never launched {name}")
+
+    # gate (a): accepted loops join keyframes of one ground-truth place
+    place = world.place_of_kf
+    wrong = [lc for lc in fe.loops if place[lc.robot_a, lc.frame_a]
+             != place[lc.robot_b, lc.frame_b]]
+    n_intra = sum(lc.robot_a == lc.robot_b for lc in fe.loops)
+    n_inter = len(fe.loops) - n_intra
+    rot_err, t_err = [], []
+    for lc in fe.loops:
+        Ra, ta = world.R_gt[lc.robot_a, lc.frame_a], world.t_gt[
+            lc.robot_a, lc.frame_a]
+        Rb, tb = world.R_gt[lc.robot_b, lc.frame_b], world.t_gt[
+            lc.robot_b, lc.frame_b]
+        R_rel, t_rel = Ra.T @ Rb, Ra.T @ (tb - ta)
+        c = (np.trace(R_rel.T @ np.asarray(lc.R, np.float64)) - 1) / 2
+        rot_err.append(float(np.arccos(np.clip(c, -1.0, 1.0))))
+        t_err.append(float(np.linalg.norm(np.asarray(lc.t) - t_rel)))
+    status = np.bincount([lc.status for lc in fe.lcd_attempts], minlength=5)
+    same = sum(place[lc.robot_a, lc.frame_a] == place[lc.robot_b, lc.frame_b]
+               for lc in fe.lcd_attempts)
+    log(f"front-end gates: accepted {len(fe.loops)} ({n_intra} intra-robot, "
+        f"{n_inter} inter-robot), across different places {len(wrong)} "
+        f"(limit 0); candidates within one place {same} of "
+        f"{len(fe.lcd_attempts)}; attempts by status {status.tolist()}; "
+        f"largest error "
+        f"against the ground-truth relative pose: rotation "
+        f"{max(rot_err):.3e} rad, translation {max(t_err):.3e} m")
+    if wrong:
+        fail(f"{len(wrong)} accepted loops join different places, e.g. "
+             f"{wrong[0][:4]}")
+    if n_intra == 0 or n_inter == 0:
+        fail("the front-end accepted no intra-robot or no inter-robot loop")
+    if not (np.isfinite(rot_err).all() and np.isfinite(t_err).all()):
+        fail("non-finite pose of an accepted loop")
+
+    # the same run again, warm, for the times
+    fe2, st = run()
+    if [lc[:4] for lc in fe2.lcd_attempts] != [lc[:4] for lc in
+                                                fe.lcd_attempts]:
+        fail("a second process_all gave other candidates")
+    out = {
+        "fe_world": f"make_world({R}, {T}, {K}, seed=0)",
+        "bow_ms": st["t_bow"] * 1e3, "detect_ms": st["t_scan"] * 1e3,
+        "compact_ms": st["t_compact"] * 1e3,
+        "fe_verify_ms": st["t_verify"] * 1e3,
+        "process_all_ms": st["t_process_all"] * 1e3,
+        "process_all_first_ms": stats["t_process_all"] * 1e3,
+        "fe_keyframes_per_s": st["n_keyframes"] / st["t_process_all"],
+        "fe_verifications_per_s": st["n_candidates"] / st["t_verify"],
+        "fe_verify_chunks": st["verify_chunks"],
+        "n_keyframes": st["n_keyframes"], "n_candidates": st["n_candidates"],
+        "n_accepted": len(fe2.loops), "n_accepted_intra": n_intra,
+        "n_accepted_inter": n_inter, "bow_overflow": fe2.bow_overflow,
+        "fe_status_counts": status.tolist(),
+        "fe_candidates_same_place": int(same),
+        "fe_max_rot_err_rad": max(rot_err), "fe_max_t_err_m": max(t_err),
+        "fe_launches": launches, "fe_host_world_s": host_s,
+    }
+    log(f"front-end times (warm): bow {out['bow_ms']:.1f} ms, detect "
+        f"{out['detect_ms']:.1f} ms, compact {out['compact_ms']:.1f} ms, "
+        f"verify {out['fe_verify_ms']:.1f} ms, process_all "
+        f"{out['process_all_ms']:.1f} ms")
+
+    if profile:
+        ids, w, qi, qw, _ = fe2._bow_all(stores[0], stores[3])
+        kfv = stores[3].any(-1)
+        prof = profile_detect_steps(
+            lambda: fe2._detect(ids, w, qi, qw, kfv),
+            st["t_scan"] * 1e3 / T, first=T // 2, n=32)
+        print(json.dumps({"profile_detect": prof}), flush=True)
+    del fe, fe2, stores
+
+    # gate (b): detection on the card equals detection on the CPU
+    world_b, voc_b = world_and_vocab(6, 256, 1)
+    Rb, Tb = world_b.obs_valid.shape[:2]
+    res = []
+    for d in (dev, torch.device("cpu")):
+        fe = batched.BatchedFrontend(Rb, Tb, voc_b, cfg, device=d)
+        ids, w, qi, qw, ovf = fe.compute_bows(world_b.descriptors,
+                                              world_b.obs_valid)
+        det, _ = batched.make_detector(Rb, Tb, cfg, device=d)(
+            ids, w, qi, qw, world_b.obs_valid.any(-1))
+        res.append((ids, w, ovf, [x.cpu() for x in det]))
+    (ci, cw, co, cd), (hi, hw, ho, hd) = res
+    same = (np.array_equal(ci, hi) and co == ho
+            and torch.equal(cd[0], hd[0]) and torch.equal(cd[2], hd[2]))
+    w_rel = float(np.max(np.abs(cw - hw) / np.maximum(np.abs(hw), 1e-30)))
+    s_rel = float(((cd[1] - hd[1]).abs()
+                   / hd[1].abs().clamp(min=1e-30)).max())
+    log(f"front-end card vs CPU on make_world(6, 256, 704, seed=1): BoW ids, "
+        f"overflow, detected and match equal: {same}; {int(hd[2].sum())} "
+        f"detections; max relative difference of BoW weights {w_rel:.2e}, of "
+        f"island scores {s_rel:.2e} (limit 1e-6)")
+    if not same or w_rel > 1e-6 or s_rel > 1e-6:
+        fail("the front-end's detection on the card differs from the CPU's")
+    out["fe_card_equals_cpu_detections"] = int(hd[2].sum())
     return out
 
 
@@ -366,7 +708,7 @@ def main() -> None:
             source="kimera_multi_tpu_torch/kernels/csrc/hamming.cu",
             replaces="kimera_multi_tpu/kernels/hamming.py:162",
             bytes=C * (K + K) * 32 + C * K + 3 * C * K * 4,
-            ops=C * K * K * 8 * 3, peak=PEAK_INT, per_chunk=1,
+            pairs=C * K * K,
             shape=f"C={C} Kq=Kt={K}"),
         "sample_gather_t": dict(
             args=(bq, head), fn=gather.sample_gather_t,
@@ -375,7 +717,7 @@ def main() -> None:
             replaces="kimera_multi_tpu/kernels/gather.py:93",
             bytes=n_head * 3 * 4 + C * PRESEL_PTS * 4
             + C * 3 * PRESEL_PTS * 4,
-            ops=0, peak=PEAK_F32, per_chunk=2,
+            ops=0, peak=PEAK_F32,
             shape=f"C={C} K={K} H={PRESEL_PTS} k=1 (preselect points)"),
         "sample_gather_perm_t": dict(
             args=(bq, picks5, order, inv_order),
@@ -383,7 +725,7 @@ def main() -> None:
             ref=lambda d, p, o, i: gather.sample_gather_perm_t_ref(d, p, o),
             source="kimera_multi_tpu_torch/kernels/csrc/gather.cu",
             replaces="kimera_multi_tpu/kernels/gather.py:139",
-            bytes=perm_bytes(5), ops=0, peak=PEAK_F32, per_chunk=2,
+            bytes=perm_bytes(5), ops=0, peak=PEAK_F32,
             shape=f"C={C} K={K} H={H} k=5"),
         "permute_cols": dict(
             args=(bm, idx), fn=gather.permute_cols,
@@ -391,7 +733,7 @@ def main() -> None:
             source="kimera_multi_tpu_torch/kernels/csrc/gather.cu",
             replaces="kimera_multi_tpu/kernels/gather.py:188",
             bytes=n_idx * 3 * 4 + C * K * 4 + C * 3 * K * 4,
-            ops=0, peak=PEAK_F32, per_chunk=2, shape=f"C={C} K={K}"),
+            ops=0, peak=PEAK_F32, shape=f"C={C} K={K}"),
         "fivept_models": dict(
             args=(g1, g2),
             fn=lambda a, b: fivept.fivept_models(a, b, S5, GN_ITERS,
@@ -402,7 +744,7 @@ def main() -> None:
             source="kimera_multi_tpu_torch/kernels/csrc/fivept.cu",
             replaces="kimera_multi_tpu/kernels/fivept.py:183",
             bytes=2 * C * 15 * H * 4 + C * 9 * S5 * H * 4,
-            ops=C * H * ops_5pt[S5], peak=PEAK_F32, per_chunk=1,
+            ops=C * H * ops_5pt[S5], peak=PEAK_F32,
             shape=f"C={C} H={H} S={S5} gn_iters={GN_ITERS}"),
         "presel_counts": dict(
             args=(E_rows, f1p, f2p, validp),
@@ -412,7 +754,7 @@ def main() -> None:
             replaces="kimera_multi_tpu/kernels/fivept.py:313",
             bytes=C * 9 * S5 * H * 4 + 2 * C * 3 * PRESEL_PTS * 4
             + C * PRESEL_PTS + C * H * S5 * 4,
-            ops=H * S5 * n_validp * OPS_SAMPSON, peak=PEAK_F32, per_chunk=1,
+            ops=H * S5 * n_validp * OPS_SAMPSON, peak=PEAK_F32,
             shape=f"C={C} H={H} S={S5} P={PRESEL_PTS}"),
         "rigid_counts": dict(
             args=(R_h, t_h, lq, lm_m, matched),
@@ -421,7 +763,7 @@ def main() -> None:
             source="kimera_multi_tpu_torch/kernels/csrc/score.cu",
             replaces="kimera_multi_tpu/kernels/score.py:116",
             bytes=C * H * 12 * 4 + 2 * n_valid * 3 * 4 + C * K + C * H * 4,
-            ops=H * n_valid * OPS_RIGID, peak=PEAK_F32, per_chunk=1,
+            ops=H * n_valid * OPS_RIGID, peak=PEAK_F32,
             shape=f"C={C} K={K} H={H}"),
         "essential_counts": dict(
             args=(E_sel, bq, bm_m, matched),
@@ -432,12 +774,12 @@ def main() -> None:
             bytes=C * PRESEL_MODELS * 9 * 4 + 2 * n_valid * 3 * 4 + C * K
             + C * PRESEL_MODELS * 4,
             ops=PRESEL_MODELS * n_valid * OPS_SAMPSON, peak=PEAK_F32,
-            per_chunk=1,
             shape=f"C={C} K={K} H={PRESEL_MODELS} (5-point rescore)"),
     }
     # second shapes of the same kernels: the stereo gather, and the 8-point
-    # path's gather and scoring (use_5pt=False); the last number is the
-    # shape's launches per chunk of the default configuration
+    # path's gather and scoring (use_5pt=False); the last number is how
+    # many of a default chunk's launches of the kernel are at that shape
+    # (the path's structure; the rest are at the row's own shape)
     extra = {
         "sample_gather_perm_t": [
             ("k=3 (stereo)", (lq, picks3, order, inv_order),
@@ -712,12 +1054,22 @@ def main() -> None:
             "operations"
 
     for name, s in specs.items():
+        # launches per chunk as counted in the main path's run
+        per_chunk, rest = divmod(launches5[name], n_chunks)
+        if rest or per_chunk != expect5[name]:
+            fail(f"{name}: {launches5[name]} launches in {n_chunks} chunks, "
+                 f"expected {expect5[name]} per chunk")
         ms = device_ms(lambda: s["fn"](*s["args"]))
         host_ms = time_ms(lambda: s["fn"](*s["args"]))
         plain_ms = time_ms(
             lambda: over_subbatches(s["ref"], s["args"], s.get("sub", SUB)),
             iters=2, warmup=1)
-        b_ms, b_by = bound(s["bytes"], s["ops"], s["peak"])
+        routes = None
+        if "pairs" in s:
+            b_ms, b_by, s["ops"], routes = hamming_bound(s["pairs"],
+                                                         s["bytes"])
+        else:
+            b_ms, b_by = bound(s["bytes"], s["ops"], s["peak"])
         row = {
             "name": name, "route": "cuda", "source": s["source"],
             "replaces": s["replaces"], "launches": launches5[name],
@@ -726,24 +1078,26 @@ def main() -> None:
             "library_ms": device_ms(lib[name]) if name in lib else None,
             "bytes": s["bytes"], "ops": s["ops"],
             "ms_with_host_enqueue": host_ms,
-            "launches_per_chunk": s["per_chunk"],
+            "launches_per_chunk": per_chunk,
             "launches_use_5pt_false": launches8[name],
             "shape": s["shape"],
         }
+        if routes:
+            row["bound_routes"] = routes
         if name == "fivept_models":
             row.update(ops_per_hypothesis=ops_5pt[S5],
                        ops_nullspace_per_hypothesis=ops_shared,
                        ops_per_start=ops_per_start)
         if name in extra:
             row["other_shapes"] = []
-            for what, args, n_bytes, n_ops, per_chunk in extra[name]:
+            for what, args, n_bytes, n_ops, at_shape in extra[name]:
                 o_ms, o_by = bound(n_bytes, n_ops, s["peak"])
                 row["other_shapes"].append({
                     "shape": what,
                     "ms": device_ms(lambda: s["fn"](*args)),
                     "bound_ms": o_ms, "bound_by": o_by,
                     "bytes": n_bytes, "ops": n_ops,
-                    "launches_per_chunk": per_chunk})
+                    "launches_per_chunk_at_shape": at_shape})
         kernels.append(row)
         log(f"  {name:22s} {ms:8.4f} ms  plain {plain_ms:9.3f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})")
@@ -835,18 +1189,30 @@ def main() -> None:
     stages["lc_verifications_per_s"] = CHUNK / stages["full_ms"] * 1e3
     stages["lc_verifications_per_s_use_5pt_false"] = (
         CHUNK / stages["full_ms_use_5pt_false"] * 1e3)
-    # each launch of a chunk at its own shape
+    profile = "--profile" in sys.argv[1:]
+    if profile:
+        print(json.dumps({"profile": profile_chunk(full, stages["full_ms"])}),
+              flush=True)
+
+    # ------------------------------------------------------------------ 6
+    kernels.insert(1, db_top2_phase(desc_store, check))
+    kernels[1]["launches_per_chunk"] = launches5["hamming_top2"] // n_chunks
+    # ------------------------------------------------------------------ 7
+    stages.update(frontend_phase(dev, profile))
+    # each launch of a chunk at its own shape: the measured launches per
+    # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(
-        r["ms"] * r["launches_per_chunk"]
-        for k in kernels for r in [k] + k.get("other_shapes", []))
+        k["ms"] * (k["launches_per_chunk"]
+                   - sum(r["launches_per_chunk_at_shape"]
+                         for r in k.get("other_shapes", [])))
+        + sum(r["ms"] * r["launches_per_chunk_at_shape"]
+              for r in k.get("other_shapes", []))
+        for k in kernels)
     stages.update(chunk=CHUNK, n_hyp=N_HYP, K=K_FEAT, card=card,
                   build_s=build_s,
                   peak_mem_mb=torch.cuda.max_memory_allocated() / 1e6,
                   total_s=time.time() - t_start)
 
-    if "--profile" in sys.argv[1:]:
-        print(json.dumps({"profile": profile_chunk(full, stages["full_ms"])}),
-              flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"stages": stages}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,17 @@ explicit `device`, explicit keys. Nothing here imports jax or the JAX
 package.
 
 Layer map (what is ported so far):
-  core/      device selection, threefry RNG policy, SE(3) helpers
-  kernels/   Hamming 2-NN matcher, sample gathers, hypothesis scoring,
-             SoA minimal solvers, five-point model generation, batched
-             RANSAC; CUDA C++ under csrc/
-  frontend/  FrontendConfig, make_verifier (loop-closure verification)
-  io/        synthetic keyframe stores and candidate pairs (numpy)
+  core/      device selection, threefry RNG policy, SE(3) helpers, LCD
+             status codes
+  kernels/   Hamming 2-NN matcher and DB-wide top-2 search, BoW scoring,
+             sample gathers, hypothesis scoring, SoA minimal solvers,
+             five-point model generation, batched RANSAC; CUDA C++ under
+             csrc/
+  frontend/  BoW vocabulary and database, islands and detection,
+             FrontendConfig / VerifiedLC, the batched front-end
+             (make_detector, make_verifier, BatchedFrontend)
+  io/        synthetic keyframe stores, candidate pairs and the simulated
+             multi-robot world (numpy)
   convert    state handed over from the JAX package as numpy
 """
 

@@ -2,8 +2,9 @@
 
 The JAX package hands its state over as numpy arrays and plain values
 (this module imports neither jax nor that package): the keyframe stores,
-the raw words of a threefry key (`jax.random.key_data(key)`), and its
-`FrontendConfig`. What comes out computes the same thing in the port.
+the raw words of a threefry key (`jax.random.key_data(key)`), its
+`FrontendConfig` and its BoW `Vocabulary`. What comes out computes the same
+thing in the port.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import numpy as np
 import torch
 
 from .frontend.dlc import FrontendConfig
+from .frontend.lcd import LcdParams
+from .frontend.vocab import Vocabulary, _from_numpy
 
 
 def stores_from_numpy(desc, obs_valid, bearings, landmarks, device="cuda"):
@@ -43,6 +46,28 @@ def key_from_jax_key_data(key_data, device="cpu") -> torch.Tensor:
 
 def config_from_jax(cfg) -> FrontendConfig:
     """The JAX package's FrontendConfig (any object with the same field
-    names) -> the port's. The `lcd` parameters are carried as they are."""
-    return FrontendConfig(**{f: getattr(cfg, f)
-                             for f in FrontendConfig._fields})
+    names, its `lcd` parameters included) -> the port's."""
+    fields = {f: getattr(cfg, f) for f in FrontendConfig._fields}
+    fields["lcd"] = LcdParams(**{f: getattr(cfg.lcd, f)
+                                 for f in LcdParams._fields})
+    return FrontendConfig(**fields)
+
+
+def vocabulary_from_numpy(k, depth, centroids, word_weights, node_valid,
+                          device="cuda") -> Vocabulary:
+    """The fields of the JAX package's `Vocabulary` as numpy arrays (per
+    level (k^(l+1), 32) uint8 centroids and (k^(l+1),) bool validity,
+    (k^depth,) float32 idf weights) -> the port's, on `device`."""
+    if len(centroids) != depth or len(node_valid) != depth:
+        raise ValueError("expected one centroid and one validity array "
+                         "per level")
+    for lvl, (c, v) in enumerate(zip(centroids, node_valid)):
+        n = k ** (lvl + 1)
+        if np.shape(c) != (n, 32) or np.shape(v) != (n,):
+            raise ValueError(f"level {lvl}: expected ({n}, 32) centroids "
+                             f"and ({n},) validity")
+    if np.shape(word_weights) != (k ** depth,):
+        raise ValueError(f"expected ({k ** depth},) word weights")
+    return _from_numpy(k, depth, [np.asarray(c) for c in centroids],
+                       np.asarray(word_weights),
+                       [np.asarray(v) for v in node_valid], device)

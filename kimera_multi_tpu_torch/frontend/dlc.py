@@ -1,15 +1,18 @@
-"""Front-end configuration (the `FrontendConfig` of the JAX package's
-frontend/dlc.py; the orchestrator around it is not ported yet)."""
+"""Front-end configuration and loop-closure records (the `FrontendConfig`
+and `VerifiedLC` of the JAX package's frontend/dlc.py; the sequential
+orchestrator and the pose-graph builder follow with the back-end)."""
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import NamedTuple
+
+import numpy as np
+
+from .lcd import LcdParams
 
 
 class FrontendConfig(NamedTuple):
-    # loop-closure-detection parameters; the detection side is not ported
-    # yet, so nothing here reads them
-    lcd: Any = None
+    lcd: LcdParams = LcdParams()
     bow_capacity: int = 128  # words per BoW vector
     lowe_ratio: float = 0.7
     ransac_hyp: int = 500
@@ -26,3 +29,17 @@ class FrontendConfig(NamedTuple):
     # JAX package; use_5pt=False takes the 8-point gate
     use_5pt: bool = True
     base_seed: int = 0
+
+
+class VerifiedLC(NamedTuple):
+    robot_a: int
+    frame_a: int
+    robot_b: int
+    frame_b: int
+    R: np.ndarray  # T^a_b (pose of b's frame expressed in a)
+    t: np.ndarray
+    mono_inliers: int
+    stereo_inliers: int
+    bow_score: float
+    status: int
+    accepted: bool

@@ -40,6 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "hamming.cu": {
         "kmt_pair_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "kmt_hamming_top2": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gather.cu": {
         "kmt_sample_gather_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -58,6 +59,7 @@ SOURCES = {
 
 launches = {
     "pair_top2": 0,
+    "hamming_top2": 0,
     "sample_gather_t": 0,
     "sample_gather_perm_t": 0,
     "permute_cols": 0,

@@ -7,10 +7,12 @@ second-nearest target, accepted when d1 < ratio * d2.
 
 Two paths with identical results. The plain PyTorch version unpacks the
 descriptors to {0,1} bit matrices and takes the Hamming distance matrix as
-ham(a, b) = |a| + |b| - 2 a.b, exact in float32. The CUDA kernel
-(csrc/hamming.cu) works on the packed words with XOR + POPC and never
-forms the distance matrix. `knn2_lowe_match_pairs` launches the kernel for
-CUDA tensors and takes the plain version for CPU tensors only.
+ham(a, b) = |a| + |b| - 2 a.b, exact in float32. The CUDA kernels
+(csrc/hamming.cu) work on packed words with XOR + POPC and never form the
+distance matrix. `knn2_lowe_match_pairs` (per candidate pair) and
+`hamming_top2_pallas` (one query set against a whole database) launch
+their kernels for CUDA tensors and take the plain versions for CPU tensors
+only.
 """
 
 from __future__ import annotations
@@ -109,6 +111,12 @@ def knn2_lowe_match(desc_q, valid_q, desc_t, valid_t, lowe_ratio: float = 0.7,
     return _lowe(d1, d2, i1, valid_q, lowe_ratio, max_distance)
 
 
+def knn2_lowe_match_batch(desc_q, valid_q, desc_t, valid_t, lowe_ratio=0.7):
+    """`knn2_lowe_match` over a leading candidate-pair axis, under the JAX
+    package's name for its vmapped variant."""
+    return knn2_lowe_match(desc_q, valid_q, desc_t, valid_t, lowe_ratio)
+
+
 def knn2_lowe_match_pairs(desc_q, valid_q, desc_t, valid_t,
                           lowe_ratio: float = 0.7, max_distance: int = 256):
     """Batched pair matching: same contract and results as
@@ -119,3 +127,119 @@ def knn2_lowe_match_pairs(desc_q, valid_q, desc_t, valid_t,
                                lowe_ratio, max_distance)
     d1, d2, i1 = _pair_top2(desc_q, desc_t, valid_t)
     return _lowe(d1, d2, i1, valid_q, lowe_ratio, max_distance)
+
+
+# ---------------------------------------------------------------------------
+# DB-wide top-2 search: one query set against a large database of {0,1}
+# bit rows (the detection-side "one new keyframe against every descriptor
+# the fleet holds" search).
+# ---------------------------------------------------------------------------
+
+_TOP2_NONE = 1e9  # d1 / d2 of a query that saw fewer than 1 / 2 targets
+_TOP2_TILE = 256  # target rows the CUDA kernel stages per pass
+_TOP2_QUERIES = 512  # queries per block of the CUDA kernel
+
+
+def _top2_merge(a, b):
+    """Merge two partial (d1, d2, i1) results, `a` over earlier targets
+    than `b`: d2 keeps multiplicity, and the strict `<` keeps the first
+    index of the least distance (the JAX kernel's merge across tiles)."""
+    od1, od2, oi1 = a
+    nd1, nd2, ni1 = b
+    return (torch.minimum(od1, nd1),
+            torch.minimum(torch.maximum(od1, nd1), torch.minimum(od2, nd2)),
+            torch.where(nd1 < od1, ni1, oi1))
+
+
+def _hamming_top2_ref(bits_q, bits_t, chunk: int = 65536):
+    """Plain version of `hamming_top2_pallas`: the distance matrix over
+    chunks of `chunk` targets as |a| + |b| - 2 a.b in float32 (exact for
+    {0,1} rows of 256), top-2 per chunk, chunks merged in order. Returns
+    d1, d2 (Kq,) float32 and i1 (Kq,) int32 — d2 with multiplicity, i1 the
+    first index of the least distance."""
+    Kq, Kt = bits_q.shape[0], bits_t.shape[0]
+    dev = bits_q.device
+    q = bits_q.to(torch.float32)
+    rq = torch.sum(q, dim=-1, keepdim=True)
+    res = (torch.full((Kq,), _TOP2_NONE, device=dev),
+           torch.full((Kq,), _TOP2_NONE, device=dev),
+           torch.full((Kq,), -1, dtype=torch.int32, device=dev))
+    for lo in range(0, Kt, chunk):
+        t = bits_t[lo:lo + chunk].to(torch.float32)
+        D = rq + torch.sum(t, dim=-1)[None, :] - 2.0 * (q @ t.T)
+        n = t.shape[0]
+        cols = torch.arange(n, device=dev)
+        d1 = torch.min(D, dim=-1).values
+        i1 = torch.min(torch.where(D == d1[:, None], cols, n), dim=-1).values
+        if n > 1:
+            d2 = torch.min(torch.where(cols == i1[:, None], _TOP2_NONE, D),
+                           dim=-1).values
+        else:
+            d2 = torch.full_like(d1, _TOP2_NONE)
+        res = _top2_merge(res, (d1, d2, (i1 + lo).to(torch.int32)))
+    return res
+
+
+def top2_split_rows(Kq: int, Kt: int, n_splits: int | None = None,
+                    device=None) -> int:
+    """Target rows per split of the CUDA kernel: the target axis is cut
+    into contiguous splits of whole staging tiles, enough of them (with the
+    query blocks) to give every SM of the card several blocks, unless
+    `n_splits` says how many."""
+    n_tiles = -(-Kt // _TOP2_TILE)
+    if n_splits is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        q_blocks = -(-Kq // _TOP2_QUERIES)
+        n_splits = max(1, (8 * sms) // q_blocks)
+    n_splits = max(1, min(n_splits, n_tiles, 65535))
+    return -(-n_tiles // n_splits) * _TOP2_TILE
+
+
+def _hamming_top2(bits_q, bits_t, n_splits: int | None = None):
+    """The CUDA DB-wide top-2 kernel (csrc/hamming.cu), tensors on the
+    card: each block scans one split of the targets for up to 512 queries,
+    a second kernel merges the splits' partial results in split order."""
+    Kq, Kt = bits_q.shape[0], bits_t.shape[0]
+    _build.check_cuda("bits_q", bits_q, torch.bfloat16, (Kq, 256))
+    _build.check_cuda("bits_t", bits_t, torch.bfloat16, (Kt, 256))
+    if bits_q.data_ptr() % 16 or bits_t.data_ptr() % 16:
+        raise ValueError("hamming_top2: bit rows must be 16-byte aligned")
+    dev = bits_q.device
+    rows = top2_split_rows(Kq, Kt, n_splits, dev)
+    S = -(-Kt // rows)
+    part = torch.empty((3, S, Kq), dtype=torch.int32, device=dev)
+    d1 = torch.empty((Kq,), dtype=torch.float32, device=dev)
+    d2 = torch.empty_like(d1)
+    i1 = torch.empty((Kq,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch("hamming_top2", bits_q.data_ptr(), bits_t.data_ptr(),
+                      part.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+                      i1.data_ptr(), Kq, Kt, rows, S)
+    return d1, d2, i1
+
+
+def hamming_top2_pallas(bits_q, bits_t, tile_q: int = 128,
+                        tile_t: int = 512):
+    """Top-2 Hamming search of every query row against a whole database:
+    bits_q (Kq, 256) and bits_t (Kt, 256) are {0,1} bfloat16 matrices with
+    Kq % tile_q == 0 and Kt % tile_t == 0 (ValueError otherwise; the tiles
+    are checked, the CUDA kernel picks its own tiling).
+
+    Returns (d1 (Kq,) float32, d2 (Kq,) float32, i1 (Kq,) int32): the least
+    distance, the second least with multiplicity (= d1 when the least
+    occurs twice), and the FIRST index that reaches d1. CUDA tensors go
+    through the CUDA kernel, CPU tensors through `_hamming_top2_ref`."""
+    Kq, Kt = bits_q.shape[0], bits_t.shape[0]
+    if (bits_q.dim() != 2 or bits_t.dim() != 2 or bits_q.shape[1] != 256
+            or bits_t.shape[1] != 256):
+        raise ValueError("hamming_top2_pallas: expected (Kq, 256) and "
+                         "(Kt, 256) bit matrices")
+    if tile_q <= 0 or tile_t <= 0 or Kq % tile_q or Kt % tile_t:
+        raise ValueError(
+            f"hamming_top2_pallas: Kq={Kq} and Kt={Kt} must be multiples of "
+            f"tile_q={tile_q} and tile_t={tile_t}")
+    if Kq == 0 or Kt == 0:
+        raise ValueError("hamming_top2_pallas: empty query or target set")
+    if bits_q.device.type == "cpu":
+        return _hamming_top2_ref(bits_q, bits_t)
+    return _hamming_top2(bits_q, bits_t)

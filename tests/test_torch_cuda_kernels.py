@@ -1,5 +1,5 @@
-"""The eight CUDA kernels of the port against their plain PyTorch versions,
-on the card. These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+"""The nine CUDA kernels of the port against their plain PyTorch versions,
+on the card, and the detection slice on the card against the CPU. These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 Run them on a machine with a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -155,3 +155,74 @@ def test_presel_counts(dev, H, S, P):
     assert got.shape == (C, H, S) and got.dtype == torch.int32
     assert torch.equal(got, fivept.presel_counts_ref(*args, 0.05, S))
     assert int(got.sum()) > 0
+
+
+def _top2_case(rs, Kq, Kt):
+    t = rs.integers(0, 256, (Kt, 32), dtype=np.uint8)
+    t[1::2] = t[0::2]  # duplicated rows: ties, first index wins
+    q = t[rs.integers(0, Kt, Kq)].copy()
+    q[:, 7] ^= rs.integers(0, 256, Kq, dtype=np.uint8)
+    return q, t
+
+
+def _bits(x, dev):
+    from kimera_multi_tpu_torch.kernels.hamming import unpack_bits
+
+    return unpack_bits(torch.from_numpy(x)).to(torch.bfloat16).to(dev)
+
+
+@pytest.mark.parametrize("Kq,Kt,n_splits", [(64, 512, None), (704, 1000, 3),
+                                            (520, 4096, 16), (64, 512, 2)])
+def test_hamming_top2(dev, Kq, Kt, n_splits):
+    """K2: Kq over one block of 512 queries, Kt not a multiple of the
+    staging tile, ties everywhere, and a tie that lands exactly on a split
+    boundary (the earlier split's index must win)."""
+    rs = np.random.default_rng(Kq + Kt)
+    q, t = _top2_case(rs, Kq, Kt)
+    rows = hamming.top2_split_rows(Kq, Kt, n_splits, dev)
+    if rows < Kt:  # query 0 meets its copy at both sides of a boundary
+        t[rows - 1] = q[0]
+        t[rows] = q[0]
+    bq, bt = _bits(q, dev), _bits(t, dev)
+    n0 = _build.launches["hamming_top2"]
+    got = hamming._hamming_top2(bq, bt, n_splits)
+    torch.cuda.synchronize()
+    assert _build.launches["hamming_top2"] == n0 + 1
+    ref = hamming._hamming_top2_ref(bq, bt)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if rows < Kt:
+        assert int(got[2][0]) == rows - 1 and float(got[1][0]) == 0.0
+    # the public wrapper takes the same kernel
+    for g, r in zip(hamming.hamming_top2_pallas(bq, bt, 8, 8), ref):
+        assert torch.equal(g, r)
+
+
+def test_detection_cuda_equals_cpu(dev):
+    """BoW vectors and detections of the front-end on the card equal those
+    on the CPU (no CUDA-only tie order or atomics order)."""
+    from kimera_multi_tpu_torch.frontend import batched, dlc, vocab
+    from kimera_multi_tpu_torch.io import sim_world
+
+    w = sim_world.make_world(n_robots=3, n_steps=60, features_per_kf=96,
+                             seed=3)
+    corpus = w.descriptors[w.obs_valid].reshape(-1, 32)
+    voc = vocab.build_vocabulary(corpus[:: max(1, len(corpus) // 4000)],
+                                 k=8, depth=3, seed=3)
+    cfg = dlc.FrontendConfig()
+    outs = []
+    for d in ("cpu", dev):
+        fe = batched.BatchedFrontend(3, 60, voc, cfg, n_candidates=3,
+                                     device=d)
+        ids, wts, _, _, ovf = fe.compute_bows(w.descriptors, w.obs_valid)
+        det, _ = fe._detect(*fe._bow_all(
+            torch.from_numpy(w.descriptors).to(d),
+            torch.from_numpy(w.obs_valid).to(d))[:4],
+            w.obs_valid.any(-1))
+        outs.append((ids, wts, ovf, [x.cpu() for x in det]))
+    (i0, w0, o0, d0), (i1, w1, o1, d1) = outs
+    assert np.array_equal(i0, i1) and o0 == o1
+    np.testing.assert_allclose(w1, w0, rtol=1e-6, atol=0)
+    assert torch.equal(d0[0], d1[0]) and torch.equal(d0[2], d1[2])
+    assert int(d0[2].sum()) > 0
+    np.testing.assert_allclose(d1[1].numpy(), d0[1].numpy(), rtol=1e-6)

@@ -110,3 +110,62 @@ def test_pair_top2_ref_first_index_on_ties():
     d1, d2, i1 = th._pair_top2_ref(torch.from_numpy(dq), torch.from_numpy(dt),
                                    none)
     assert (d1 == 512).all() and (d2 == 512).all() and (i1 == 0).all()
+
+
+def _top2_bits(Kq=128, Kt=512, seed=6):
+    """Query and database bit rows with exact ties: every target row is
+    repeated once (rows 2i and 2i+1), queries are noisy copies of
+    targets."""
+    rs = np.random.default_rng(seed)
+    t = rs.integers(0, 256, (Kt, 32), dtype=np.uint8)
+    t[1::2] = t[0::2]
+    q = t[rs.integers(0, Kt, Kq)].copy()
+    q[:, 4] ^= rs.integers(0, 256, Kq, dtype=np.uint8)
+    q[: Kq // 4] = rs.integers(0, 256, (Kq // 4, 32), dtype=np.uint8)
+    return q, t
+
+
+def test_hamming_top2_ref_matches_pallas():
+    """K2's plain version against the JAX Pallas kernel (interpret mode on
+    the CPU, as tests/test_kernels_match_ransac.py runs it) and the
+    first-min argmin of the distance matrix. Exact: distances are
+    integers."""
+    q, t = _top2_bits()
+    jq = jh.unpack_bits(jnp.asarray(q)).astype(jnp.bfloat16)
+    jt = jh.unpack_bits(jnp.asarray(t)).astype(jnp.bfloat16)
+    jd1, jd2, ji1 = (np.asarray(x) for x in jh.hamming_top2_pallas(
+        jq, jt, tile_q=64, tile_t=256))
+    tq = th.unpack_bits(torch.from_numpy(q)).to(torch.bfloat16)
+    tt = th.unpack_bits(torch.from_numpy(t)).to(torch.bfloat16)
+    d1, d2, i1 = th.hamming_top2_pallas(tq, tt, tile_q=64, tile_t=256)
+    assert (d1.dtype, d2.dtype, i1.dtype) == (torch.float32, torch.float32,
+                                              torch.int32)
+    D = np.asarray(jh.hamming_matrix(jnp.asarray(q), jnp.asarray(t)))
+    np.testing.assert_array_equal(d1.numpy(), jd1)
+    np.testing.assert_array_equal(d2.numpy(), jd2)
+    np.testing.assert_array_equal(d1.numpy(), D.min(1))
+    np.testing.assert_array_equal(d2.numpy(), np.sort(D, axis=1)[:, 1])
+    np.testing.assert_array_equal(i1.numpy(), D.argmin(1))  # first minimum
+    np.testing.assert_array_equal(ji1, D.argmin(1))
+    # every duplicated target makes a tie: d2 == d1 for copied queries
+    assert (d2.numpy() == d1.numpy()).sum() >= 96
+
+
+def test_hamming_top2_chunks_and_shapes():
+    """The plain version merges target chunks in order: chunk boundaries
+    that cut through a tie keep the first index. Shapes that are not
+    multiples of the tiles raise."""
+    q, t = _top2_bits(Kq=64, Kt=300, seed=7)
+    t[150] = q[3]   # a tie of distance 0 across the boundary at 151
+    t[151] = q[3]
+    tq = th.unpack_bits(torch.from_numpy(q)).to(torch.bfloat16)
+    tt = th.unpack_bits(torch.from_numpy(t)).to(torch.bfloat16)
+    whole = th._hamming_top2_ref(tq, tt, chunk=300)
+    for chunk in (151, 64, 1):
+        for a, b in zip(whole, th._hamming_top2_ref(tq, tt, chunk=chunk)):
+            assert torch.equal(a, b)
+    assert int(whole[2][3]) == 150 and float(whole[1][3]) == 0.0
+    with pytest.raises(ValueError):
+        th.hamming_top2_pallas(tq, tt, tile_q=64, tile_t=256)
+    with pytest.raises(ValueError):
+        th.hamming_top2_pallas(tq[:63], tt, tile_q=64, tile_t=300)
