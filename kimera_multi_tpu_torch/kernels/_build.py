@@ -5,9 +5,9 @@ kmt_<name>(..., void* stream)` returning `cudaGetLastError()`), is compiled
 by `nvcc` for sm_90a into a shared library of its own and is loaded with
 ctypes. The build happens at first use, from the sources in this package
 and nothing else, into `kimera_multi_tpu_torch/_build/`, keyed by a hash
-of the source and the flags. All sources are compiled at once, one `nvcc`
-process each. A failed build raises with the compiler's output; nothing
-falls back to another path.
+of the source and its flags (`nvcc_flags`). All sources are compiled at
+once, one `nvcc` process each. A failed build raises with the compiler's
+output; nothing falls back to another path.
 
 `launches` counts, per kernel, how often a wrapper launched it.
 """
@@ -24,14 +24,27 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "kernels", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# -fmad=false: the scoring kernels decide integers (inlier counts) by
-# comparing f32 residuals with a threshold, and the five-point polish is a
-# root finder that one ulp can send into another basin. Without FMA
-# contraction their arithmetic is, operation for operation, that of the
-# plain PyTorch versions, so results agree exactly and not merely within a
-# tolerance.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# Flags of one source beside NVCC_FLAGS. -fmad=false: the scoring kernels
+# (K7 - K9 in score.cu) decide integers, inlier counts, by comparing f32
+# residuals with a threshold. Without FMA contraction their arithmetic is,
+# operation for operation, that of the plain PyTorch versions, so a residual
+# within rounding of the threshold falls on the same side in both and the
+# counts are equal, not merely close; gather.cu and hamming.cu move and
+# compare integers and keep the rule so that nothing in them depends on it.
+# fivept.cu (K6) contracts: its models are proposals that K7 and K9 then
+# judge by exact counts, a fused multiply-add is one instruction where the
+# pair was two, and the kernel is held to its plain version by a stated
+# tolerance (chip_smoke.py, tests/test_torch_cuda_kernels.py). IEEE division
+# and square root stay everywhere: no -use_fast_math, -ftz or -prec-div.
+SOURCE_FLAGS = {
+    "hamming.cu": ["-fmad=false"],
+    "gather.cu": ["-fmad=false"],
+    "score.cu": ["-fmad=false"],
+    "fivept.cu": ["-fmad=true"],
+}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -90,11 +103,16 @@ def _nvcc() -> str:
         "need the CUDA toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+def nvcc_flags(src: str) -> list:
+    """The nvcc flags `src` is compiled with."""
+    return [*NVCC_FLAGS, *SOURCE_FLAGS[src]]
+
+
 def _lib_path(src: str) -> str:
     h = hashlib.sha256()
     with open(os.path.join(CSRC_DIR, src), "rb") as f:
         h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(nvcc_flags(src)).encode())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"libkmt_{stem}_{h.hexdigest()[:16]}.so")
 
@@ -109,7 +127,7 @@ def build_all(verbose: bool = False) -> dict:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd = [_nvcc(), *nvcc_flags(src)]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         cmd += ["-o", tmp, os.path.join(CSRC_DIR, src)]

@@ -9,13 +9,14 @@
 //
 // The TPU kernel put the hypothesis axis in lanes and the start axis in
 // sublanes of one (S, tile) array. Here one thread owns one (candidate,
-// hypothesis, start) and keeps everything in registers: the design (45
-// floats), then the basis (36), then the polish state (Jacobian 40, normal
-// matrix 16, E and its products ~50). The basis depends on the hypothesis
-// only; the S threads of a hypothesis each recompute it (1.7e3 of the
-// 1.8e4 operations of a thread at 8 steps) rather than share it through
-// shared memory and a barrier; ptxas places all of it in 127 registers
-// without spilling.
+// hypothesis) and kStartsPerThread (4) of its starts, polished one after
+// the other, and keeps everything in registers: the design (45 floats),
+// then the basis (36), then the polish state (Jacobian 40, normal matrix
+// 16, E and its products ~50). The basis depends on the hypothesis only;
+// the threads of a hypothesis (2 at 8 starts) each compute it (1.6e3
+// operations, against 1.7e4 per start at 8 steps) rather than share it
+// through shared memory and a barrier; ptxas places all of it in 128
+// registers without spilling.
 //
 // Bound on an H100: operations. Per chunk (1024 candidates x 500
 // hypotheses x 8 starts) the inputs are 61 MB and the output 147 MB,
@@ -23,21 +24,38 @@
 // design does about it: no memory traffic inside the polish at all; the
 // grid's x axis runs along hypotheses, so a warp's loads of one sample
 // coordinate and its stores of one model entry (out[c, e*S + s, h]) are
-// each one coalesced 128-byte line.
+// each one coalesced 128-byte line; and the library is built with FMA
+// contraction (kernels/_build.py), so the dot products, the combinations
+// of the basis and the Jacobian's 3-term sums issue one FFMA where an
+// unfused build issued an FMUL and an FADD.
 //
-// Equality with the plain version (`_fivept_models_ref` in
-// kernels/fivept.py): the polish is a root finder, and one ulp can send a
-// start into another basin. The library is built with -fmad=false, with
-// IEEE division and square root, and every expression below repeats the
-// plain version's operations in its order: sums left to right from their
-// first term, `1.0 / x` as one division, `step_cap / x` as PyTorch
-// evaluates it (x.reciprocal() * step_cap), clamps that pass NaN through.
+// Agreement with the plain version (`_fivept_models_ref` in
+// kernels/fivept.py): every expression below repeats the plain version's
+// operations in its order (sums left to right from their first term,
+// `1.0 / x` as one division, `step_cap / x` as PyTorch evaluates it,
+// x.reciprocal() * step_cap, clamps that pass NaN through), with IEEE
+// division and square root. A fused multiply-add rounds once where the
+// plain version rounds twice, so the two agree within rounding before the
+// polish (3e-5 plus a multiple of the 5 x 9 design's condition number
+// times float32's unit roundoff) and, the polish being a root finder, by
+// shares after it: the stated contract is in
+// chip_smoke.py and tests/test_torch_cuda_kernels.py. The models are
+// proposals; K7 and K9 judge them by exact counts.
+//
+// kMinBlocks is the second argument of __launch_bounds__: 4 blocks of 128
+// threads on each SM cap a thread at 128 registers, which hold the polish
+// without spilling (5 or more blocks spill). kStartsPerThread is how many
+// starts one thread polishes in turn after computing its hypothesis's
+// basis once. Both were chosen by timing the alternatives on an H100
+// (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 4;
+constexpr int kStartsPerThread = 4;
 constexpr float kEps = 1e-12f;
 
 // torch.clamp(x, min=lo) / torch.clamp(x, max=hi): NaN passes through
@@ -282,27 +300,30 @@ __device__ __forceinline__ void gn_step(const float B[4][9], float q[4],
 }
 
 // out[c, e*S + s, h] = entry e of start s's polished model of hypothesis h
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 fivept_kernel(const float* __restrict__ g1,      // (C, 15, H)
               const float* __restrict__ g2,      // (C, 15, H)
               const float* __restrict__ starts,  // (S, 4)
               float* __restrict__ out,           // (C, 9 S, H)
               int H, int S, int n_iters, float step_cap, float damping) {
   const int h = blockIdx.x * kThreads + threadIdx.x;
-  const int s = blockIdx.y;
   const int c = blockIdx.z;
   if (h >= H) return;
   float B[4][9];
   nullspace5(g1 + (size_t)c * 15 * H + h, g2 + (size_t)c * 15 * H + h, H, B);
-  float q[4];
+  const int s_end = min(S, (blockIdx.y + 1) * kStartsPerThread);
+#pragma unroll 1
+  for (int s = blockIdx.y * kStartsPerThread; s < s_end; ++s) {
+    float q[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q[i] = starts[4 * s + i];
-  for (int it = 0; it < n_iters; ++it) gn_step(B, q, step_cap, damping);
-  float E[9];
-  combine(B, q, E);
-  float* o = out + ((size_t)c * 9 * S + s) * H + h;
+    for (int i = 0; i < 4; ++i) q[i] = starts[4 * s + i];
+    for (int it = 0; it < n_iters; ++it) gn_step(B, q, step_cap, damping);
+    float E[9];
+    combine(B, q, E);
+    float* o = out + ((size_t)c * 9 * S + s) * H + h;
 #pragma unroll
-  for (int e = 0; e < 9; ++e) o[(size_t)e * S * H] = E[e];
+    for (int e = 0; e < 9; ++e) o[(size_t)e * S * H] = E[e];
+  }
 }
 
 }  // namespace
@@ -312,7 +333,8 @@ extern "C" int kmt_fivept_models(const void* g1, const void* g2,
                                  int S, int n_iters, float step_cap,
                                  float damping, void* stream) {
   if (C <= 0 || H <= 0 || S <= 0) return (int)cudaGetLastError();
-  dim3 grid((H + kThreads - 1) / kThreads, S, C);
+  dim3 grid((H + kThreads - 1) / kThreads,
+            (S + kStartsPerThread - 1) / kStartsPerThread, C);
   fivept_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)g1, (const float*)g2, (const float*)starts, (float*)out,
       H, S, n_iters, step_cap, damping);

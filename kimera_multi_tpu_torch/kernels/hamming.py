@@ -8,8 +8,10 @@ second-nearest target, accepted when d1 < ratio * d2.
 Two paths with identical results. The plain PyTorch version unpacks the
 descriptors to {0,1} bit matrices and takes the Hamming distance matrix as
 ham(a, b) = |a| + |b| - 2 a.b, exact in float32. The CUDA kernels
-(csrc/hamming.cu) work on packed words with XOR + POPC and never form the
-distance matrix. `knn2_lowe_match_pairs` (per candidate pair) and
+(csrc/hamming.cu) never form the distance matrix in memory: the pair
+kernel takes the same product on the int8 tensor cores and keeps a top-2
+of unique integer keys in registers, the DB-wide kernel works on packed
+words with XOR + POPC. `knn2_lowe_match_pairs` (per candidate pair) and
 `hamming_top2_pallas` (one query set against a whole database) launch
 their kernels for CUDA tensors and take the plain versions for CPU tensors
 only.
@@ -22,6 +24,7 @@ import torch
 from . import _build
 
 _NO_MATCH = 512  # distance given to an invalid target: beyond any real one
+_PAIR_MAX_KT = 1 << 21  # targets the pair kernel's keys hold (column bits)
 
 
 def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
@@ -71,11 +74,12 @@ def _pair_top2(desc_q, desc_t, valid_t):
     `_pair_top2_ref`, tensors on the card."""
     C, Kq, _ = desc_q.shape
     Kt = desc_t.shape[1]
+    if Kt > _PAIR_MAX_KT:
+        raise ValueError(f"pair_top2: at most {_PAIR_MAX_KT} targets (the "
+                         f"column bits of the kernel's keys), got {Kt}")
     _build.check_cuda("desc_q", desc_q, torch.uint8, (C, Kq, 32))
     _build.check_cuda("desc_t", desc_t, torch.uint8, (C, Kt, 32))
     _build.check_cuda("valid_t", valid_t, torch.bool, (C, Kt))
-    if C > 65535:
-        raise ValueError("pair_top2: at most 65535 pairs per launch")
     if desc_q.data_ptr() % 16 or desc_t.data_ptr() % 16:
         raise ValueError("pair_top2: descriptors must be 16-byte aligned")
     d1 = torch.empty((C, Kq), dtype=torch.int32, device=desc_q.device)

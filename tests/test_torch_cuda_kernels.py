@@ -4,12 +4,22 @@ Run them on a machine with a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Tolerance: none. Matcher and gathers are integer / copy operations; the
-scoring kernels and the five-point model kernel are built without FMA
-contraction and repeat the plain versions' operation order, so counts and
-models are equal. Shapes are ragged on purpose (K not a multiple of 32, H
-not a multiple of the block's hypothesis tile, Kq != Kt, P over one
-shared-memory tile)."""
+Tolerance: none, except for the five-point model kernel. Matcher and
+gathers are integer / copy operations; the scoring kernels are built
+without FMA contraction and repeat the plain versions' operation order, so
+counts are equal. The five-point kernel (K6) is built with FMA contraction
+and held to its plain version by a stated contract on clean minimal
+samples: before the polish every hypothesis within 3e-5 + 16 cond 2^-24,
+where cond is its 5 x 9 design's condition number (the factor by which
+float32's rounding of the design can move its nullspace), after it at
+least 98 % of the entries within 1e-3,
+and its own models solve their samples (more than 95 % of hypotheses have
+a start with an epipolar residual under 5e-4); a degenerate hypothesis is
+compared by its NaN/finite pattern only. Shapes
+are ragged on purpose (K not a multiple of 32, H not a multiple of the
+block's hypothesis tile, Kq != Kt, Kq and Kt one past the pair kernel's
+tiles, more targets than one of its passes, P over one shared-memory
+tile)."""
 
 import numpy as np
 import pytest
@@ -29,12 +39,18 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("Kq,Kt", [(70, 99), (704, 704), (33, 1100)])
-def test_pair_top2(dev, Kq, Kt):
+@pytest.mark.parametrize("Kq,Kt,all_equal", [
+    (70, 99, False), (704, 704, False), (33, 1100, False),
+    # one past a 64-query tile and a 176-target product; one target; every
+    # target the same descriptor (ties everywhere); three passes of 704
+    (65, 177, False), (70, 1, False), (130, 704, True), (200, 1500, False)])
+def test_pair_top2(dev, Kq, Kt, all_equal):
     rs = np.random.default_rng(0)
     C = 5
     dt = rs.integers(0, 256, (C, Kt, 32), dtype=np.uint8)
     dt[:, 1::2] = dt[:, 0:Kt - 1:2]  # equal targets: ties
+    if all_equal:
+        dt[:] = dt[:, :1]
     dq = dt[:, rs.integers(0, Kt, Kq)].copy()
     dq[:, :, 3] ^= 5
     vt = rs.uniform(size=(C, Kt)) < 0.7
@@ -121,6 +137,16 @@ def _fivept_samples(rs, C, H):
         for x in f]
 
 
+def _design_cond(f1, f2):
+    """(C, H) condition number of each hypothesis's 5 x 9 design."""
+    C, _, H = f1.shape
+    a = f1.double().reshape(C, 5, 3, H).permute(0, 3, 1, 2)
+    b = f2.double().reshape(C, 5, 3, H).permute(0, 3, 1, 2)
+    sv = torch.linalg.svdvals(torch.einsum("nhkr,nhkq->nhkrq", b, a)
+                              .reshape(C, H, 5, 9))
+    return sv[..., 0] / sv[..., 4]
+
+
 @pytest.mark.parametrize("H,gn_iters", [(37, 0), (500, 8), (130, 3)])
 def test_fivept_models(dev, H, gn_iters):
     rs = np.random.default_rng(4)
@@ -134,7 +160,28 @@ def test_fivept_models(dev, H, gn_iters):
     assert _build.launches["fivept_models"] == n0 + 1
     ref = fivept._fivept_models_ref(f1, f2, 8, gn_iters, project=False)
     assert got.shape == (3, 72, H)
-    assert torch.equal(got, ref), int((got != ref).sum())
+    # the degenerate hypothesis: NaN/finite pattern only
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    clean = torch.ones(3, 72, H, dtype=torch.bool, device=dev)
+    clean[1, :, 0] = False
+    diff = (got - ref).abs()
+    if gn_iters == 0:
+        limit = 3e-5 + 16 * _design_cond(f1, f2) * 2.0 ** -24
+        err = torch.where(clean & torch.isfinite(diff), diff,
+                          torch.zeros_like(diff)).amax(1)
+        over = err > limit
+        assert not over.any(), (err[over], limit[over])
+    else:
+        share = float((diff[clean] <= 1e-3).float().mean())
+        assert share >= 0.98, share
+    if gn_iters == 8:
+        E = fivept.models_to_flat(got, 8).reshape(3, H, 8, 3, 3)
+        a = f1.reshape(3, 5, 3, H).permute(0, 3, 1, 2)
+        b = f2.reshape(3, 5, 3, H).permute(0, 3, 1, 2)
+        resid = torch.einsum("chkj,chsji,chki->chsk", b, E, a).abs()
+        best = resid.amax(-1).amin(-1)[clean[:, 0]]
+        solved = float((best < 5e-4).float().mean())
+        assert solved > 0.95, solved
 
 
 @pytest.mark.parametrize("H,S,P", [(500, 8, 64), (45, 3, 300)])

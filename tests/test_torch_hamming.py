@@ -169,3 +169,15 @@ def test_hamming_top2_chunks_and_shapes():
         th.hamming_top2_pallas(tq, tt, tile_q=64, tile_t=256)
     with pytest.raises(ValueError):
         th.hamming_top2_pallas(tq[:63], tt, tile_q=64, tile_t=300)
+
+
+def test_pair_top2_refuses_more_targets_than_its_keys_hold():
+    """The pair kernel's keys carry the target column in 21 bits: the
+    wrapper raises before it looks at the device (no memory is needed for
+    an expanded view)."""
+    Kt = th._PAIR_MAX_KT + 1
+    dq = torch.zeros(1, 4, 32, dtype=torch.uint8)
+    dt = torch.zeros(1, 1, 32, dtype=torch.uint8).expand(1, Kt, 32)
+    vt = torch.ones(1, 1, dtype=torch.bool).expand(1, Kt)
+    with pytest.raises(ValueError, match="targets"):
+        th._pair_top2(dq, dt, vt)
