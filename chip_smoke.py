@@ -28,6 +28,10 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     the detection on the card equals the detection on the CPU for
     `make_world(6, 256, 704, seed=1)`.
 
+K7 and K8 are also held to their plain versions on inputs built so that
+hundreds of residuals sit on the threshold or one ulp beside it (the
+boundary phase).
+
 Kernel counts are set to 0 just before each path and read just after;
 kernels (device time) and stages (as the caller sees them) are timed with
 CUDA events or the host clock around synchronised work.
@@ -91,6 +95,9 @@ OPS_TOP2_EPILOGUE = 4
 U32 = 2.0 ** -24
 FIVEPT_GN0_MAX, FIVEPT_COND_GAIN, FIVEPT_TOL = 3e-5, 16.0, 1e-3
 FIVEPT_SHARE, FIVEPT_SOLVED = 0.98, 0.95
+# residuals within one ulp of the threshold that each launch of the
+# boundary phase must hold
+BOUNDARY_MIN = 100
 # accepted same-place loops of the front-end run (make_world(6, 1024, 704,
 # seed=0), FrontendConfig()) with the unfused five-point kernel
 FE_ACCEPTED_BEFORE = 22972
@@ -293,8 +300,13 @@ def device_summary(prof, wall_ms: float) -> dict:
         return {"device_time": "not measured (the profiler reported no "
                                "device events)"}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # this repo's kernels (in an anonymous namespace at file scope, unlike
+    # PyTorch's at::native ones), template instances
+    # (`presel_counts_kernel<true>`) included
     own = [(k, v) for k, v in by_name.items()
-           if "(anonymous namespace)::" in k and "_kernel(" in k]
+           if "(anonymous namespace)::" in k
+           and "::" not in k.split("(anonymous namespace)::")[0]
+           and ("_kernel(" in k or "_kernel<" in k)]
     return {
         "device_kernels_per_chunk": sum(n for n, _ in by_name.values()),
         "distinct_kernels": len(by_name),
@@ -329,6 +341,206 @@ def clean_fivept_samples(C: int, H: int, seed: int):
         f = X / np.linalg.norm(X, axis=-1, keepdims=True)
         out.append(torch.from_numpy(np.ascontiguousarray(
             f.transpose(0, 2, 3, 1).reshape(C, 15, H).astype(np.float32))))
+    return out
+
+
+# Boundary inputs of K8 and K7: residuals placed on the threshold, or a few
+# ulps beside it, in the plain versions' float32 operations (numpy float32
+# replays them), by walking one or two inputs of a designated residual
+# over a grid of ulps; a residual whose walk lands on no target keeps its
+# nearest value. Some models hold NaN, +-inf or zeros; the last candidate
+# but one has no valid point, the last one a single one.
+
+
+def _rows32(M, x):
+    """Rows of M x for M (..., 3, 3), x (..., 3), summed left to right."""
+    return [(M[..., i, 0] * x[..., 0] + M[..., i, 1] * x[..., 1])
+            + M[..., i, 2] * x[..., 2] for i in range(3)]
+
+
+def _walk(x, steps):
+    """float32 x moved by each of `steps` ulps: (*x.shape, len(steps))."""
+    bits = (x.view(np.int32)[..., None]
+            + np.sign(x).astype(np.int32)[..., None] * steps)
+    return bits.astype(np.int32).view(np.float32)
+
+
+def _land(vals, target, xs):
+    """Move each x of `xs` ((x, steps) pairs, the grid axes of `vals` in
+    order) to the first grid point whose value equals `target`."""
+    hit = vals.reshape(*target.shape, -1) == target[..., None]
+    j, ok = hit.argmax(-1), hit.any(-1)
+    out = []
+    for x, st in reversed(xs):
+        j, k = np.divmod(j, len(st))
+        moved = np.take_along_axis(_walk(x, st), k[..., None], -1)[..., 0]
+        out.append(np.where(ok, moved, x))
+    return out[::-1]
+
+
+def _near(x, t):
+    """x within one float32 ulp of t, on either side."""
+    t = np.float32(t)
+    return ((x >= np.nextafter(t, np.float32(0)))
+            & (x <= np.nextafter(t, np.float32(np.inf))))
+
+
+def _sampson32(E, a, b):
+    """Squared Sampson error of E (..., 3, 3) at bearings a, b (..., 3)."""
+    ef, et = _rows32(E, a), _rows32(np.swapaxes(E, -1, -2), b)
+    num = (b[..., 0] * ef[0] + b[..., 1] * ef[1]) + b[..., 2] * ef[2]
+    den = ((ef[0] * ef[0] + ef[1] * ef[1]) + et[0] * et[0]) + et[1] * et[1]
+    return (num * num) / np.maximum(den, np.float32(1e-12))
+
+
+def _valid(rs, C, K, share):
+    v = rs.uniform(size=(C, K)) < share
+    v[C - 2] = False
+    v[C - 1] = False
+    v[C - 1, 4] = True
+    return v
+
+
+def rigid_boundary(rs, C, H, K, thr, share):
+    """K8's inputs (R, t, p, q, valid) with ||q_k - (R_h p_k + t_h)||^2 of
+    h = k % H at float32(thr^2) or one ulp below or above it, and the
+    number of residuals of valid points within one ulp of it."""
+    from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
+
+    T = np.float32(thr * thr)
+    tg = np.array([np.nextafter(T, np.float32(0)), T,
+                   np.nextafter(T, np.float32(np.inf))])[np.arange(K) % 3]
+    s = np.sqrt(float(T))
+    R = _so3_exp_np(rs.normal(0, 0.6, (C, H, 3)))
+    t = rs.uniform(-s / 2, s / 2, (C, H, 3)).astype(np.float32)
+    p = rs.uniform(-s, s, (C, 3, K)).astype(np.float32)
+    h = np.arange(K) % H
+    w = _rows32(R[:, h], np.moveaxis(p, 1, -1))
+    w = [w[i] + t[:, h, i] for i in range(3)]
+    u = rs.normal(size=(C, K, 3))
+    u = (s * u / np.linalg.norm(u, axis=-1, keepdims=True)).astype(np.float32)
+    q = np.stack([w[i] + u[..., i] for i in range(3)], 1)
+    st = np.arange(-12, 13)
+    r0 = _walk(q[:, 0], st)[..., :, None] - w[0][..., None, None]
+    r1 = _walk(q[:, 1], st)[..., None, :] - w[1][..., None, None]
+    r2 = (q[:, 2] - w[2])[..., None, None]
+    q[:, 0], q[:, 1] = _land((r0 * r0 + r1 * r1) + r2 * r2,
+                             np.broadcast_to(tg, (C, K)),
+                             [(q[:, 0], st), (q[:, 1], st)])
+    R[:, H - 1, 0, 0] = np.nan
+    R[:, H - 2, 1, 2] = np.inf
+    R[:, H - 3, 2, 1] = -np.inf
+    t[:, H - 4, 0] = np.inf
+    R[:, H - 5], t[:, H - 5] = 0, 0
+    valid = _valid(rs, C, K, share)
+    with np.errstate(invalid="ignore"):
+        w = _rows32(R[:, :, None], np.moveaxis(p, 1, -1)[:, None])
+        r = [q[:, None, i] - (w[i] + t[:, :, None, i]) for i in range(3)]
+        d2 = (r[0] * r[0] + r[1] * r[1]) + r[2] * r[2]
+    return (R, t, p, np.ascontiguousarray(q), valid), int(
+        (_near(d2, T) & valid[:, None]).sum())
+
+
+# ulps from the threshold at which K7's boundary residuals are placed: half
+# within one ulp, the rest across the band where the kernel's rule divides
+# (|n / d - thr| within about thr 2^-20: 4 - 16 ulps) and just outside it
+PRESEL_OFFSETS = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12,
+                           -16, 16])
+
+
+def presel_boundary(rs, C, H, S, P, thr, share):
+    """K7's inputs (rows (C, 9 S, H), f1, f2 (C, 3, P), valid) with the
+    squared Sampson error of model p (flat (h, s) order) at point p
+    PRESEL_OFFSETS[p % 14] ulps from float32(thr), and the number of
+    residuals of valid points within one ulp of it. Model p's first two
+    rows are orthogonal to f1_p, so num = f2 . (E f1) is mostly b2 (E f1)_2
+    and moves by about an ulp per ulp of b2: b2 comes from bisection in
+    float64, then b0 and b2 are walked over a grid of ulps."""
+    t32 = np.float32(thr)
+    tg = _walk(np.array([t32]), PRESEL_OFFSETS)[0][
+        np.arange(P) % len(PRESEL_OFFSETS)]
+    a = rs.normal(size=(C, P, 3))
+    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+    a64 = a.astype(np.float64)
+    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
+    Em = E[:, :P]
+    for i in (0, 1):
+        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
+    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
+    E = E.astype(np.float32)
+    Em = E[:, :P]
+    ef = np.stack(_rows32(Em, a), -1).astype(np.float64)
+    c2 = rs.normal(size=(C, P, 2))
+    c2 /= np.linalg.norm(c2, axis=-1, keepdims=True)
+
+    def bearing(b2):
+        r = np.sqrt(1 - b2 * b2)
+        return np.stack([c2[..., 0] * r, c2[..., 1] * r, b2], -1)
+
+    lo, hi = np.zeros((C, P)), np.ones((C, P))
+    for _ in range(60):   # num^2 - thr den changes sign for b2 in [0, 1]
+        mid = (lo + hi) / 2
+        b = bearing(mid)
+        et = np.einsum("cpji,cpj->cpi", Em.astype(np.float64), b)
+        num = np.sum(b * ef, -1)
+        neg = num * num < float(t32) * (ef[..., 0] ** 2 + ef[..., 1] ** 2
+                                        + et[..., 0] ** 2 + et[..., 1] ** 2)
+        lo, hi = np.where(neg, mid, lo), np.where(neg, hi, mid)
+    b = bearing(lo).astype(np.float32)
+    s0, s2 = np.arange(-4, 5), np.arange(-32, 33)
+    grid = np.stack(np.broadcast_arrays(
+        _walk(b[..., 0], s0)[..., :, None], b[..., 1, None, None],
+        _walk(b[..., 2], s2)[..., None, :]), -1)
+    b[..., 0], b[..., 2] = _land(
+        _sampson32(Em[:, :, None, None], a[:, :, None, None], grid),
+        np.broadcast_to(tg, (C, P)), [(b[..., 0], s0), (b[..., 2], s2)])
+    # all NaN: the models of a candidate without correspondences
+    E[:, (H - 1) * S:] = np.nan
+    E[:, (H - 2) * S, 0, 0] = np.inf
+    E[:, (H - 2) * S + 1, 1, 2] = -np.inf
+    E[:, (H - 2) * S + 2] = np.inf
+    E[:, (H - 3) * S:(H - 2) * S] = 0
+    valid = _valid(rs, C, P, share)
+    with np.errstate(invalid="ignore"):
+        err = _sampson32(E[:, :, None], a[:, None], b[:, None])
+    rows = E.reshape(C, H, S, 9).transpose(0, 3, 2, 1).reshape(C, 9 * S, H)
+    return (np.ascontiguousarray(rows), np.ascontiguousarray(
+        np.moveaxis(a, -1, 1)), np.ascontiguousarray(np.moveaxis(b, -1, 1)),
+        valid), int((_near(err, t32) & valid[:, None]).sum())
+
+
+def boundary_phase(dev, check) -> dict:
+    """Boundary counts: K8 and K7 against their plain versions on inputs
+    whose residuals sit on the threshold (`rigid_boundary`,
+    `presel_boundary`), for the path's, power-of-two and other thresholds,
+    with every point valid or 60 % scattered. Fails unless the counts are
+    equal and each launch has at least BOUNDARY_MIN residuals of valid
+    points within one ulp of its threshold. Returns those numbers."""
+    from kimera_multi_tpu_torch.kernels import fivept, score
+
+    rs = np.random.default_rng(11)
+    C, H, K, S, P = 6, 45, 1101, 8, 300
+    out = {}
+    for share in (1.0, 0.6):
+        for thr in (0.3, 0.25):   # the path's stereo threshold; thr^2 2^-4
+            inputs, near = rigid_boundary(rs, C, H, K, thr, share)
+            args = [torch.from_numpy(x).to(dev) for x in inputs]
+            what = f"C={C} K={K} H={H} thr={thr:g} valid {share:g}"
+            check("rigid_counts", score.rigid_counts(*args, thr),
+                  score.rigid_counts_ref(*args, thr), what)
+            out[f"rigid_counts {what}"] = near
+        for thr in (1e-6, 0.05, 0.0625):   # the path's; 0.05; 2^-4
+            inputs, near = presel_boundary(rs, C, H, S, P, thr, share)
+            args = [torch.from_numpy(x).to(dev) for x in inputs]
+            what = f"C={C} H={H} S={S} P={P} thr={thr:g} valid {share:g}"
+            check("presel_counts", fivept.presel_counts(*args, thr, S),
+                  fivept.presel_counts_ref(*args, thr, S), what)
+            out[f"presel_counts {what}"] = near
+    log(f"  boundary counts: residuals of valid points within one ulp of "
+        f"the threshold per launch {out} (limit: at least {BOUNDARY_MIN})")
+    low = {k: n for k, n in out.items() if n < BOUNDARY_MIN}
+    if low:
+        fail(f"boundary counts: too few residuals on the threshold {low}")
     return out
 
 
@@ -900,6 +1112,7 @@ def main() -> None:
             bytes=C * 9 * S5 * H * 4 + 2 * C * 3 * PRESEL_PTS * 4
             + C * PRESEL_PTS + C * H * S5 * 4,
             ops=H * S5 * n_validp * OPS_SAMPSON, peak=PEAK_F32,
+            valid_points=n_validp,
             shape=f"C={C} H={H} S={S5} P={PRESEL_PTS}"),
         "rigid_counts": dict(
             args=(R_h, t_h, lq, lm_m, matched),
@@ -909,7 +1122,7 @@ def main() -> None:
             replaces="kimera_multi_tpu/kernels/score.py:116",
             bytes=C * H * 12 * 4 + 2 * n_valid * 3 * 4 + C * K + C * H * 4,
             ops=H * n_valid * OPS_RIGID, peak=PEAK_F32,
-            shape=f"C={C} K={K} H={H}"),
+            valid_points=n_valid, shape=f"C={C} K={K} H={H}"),
         "essential_counts": dict(
             args=(E_sel, bq, bm_m, matched),
             fn=lambda *a: score.essential_counts(*a, thr),
@@ -919,6 +1132,7 @@ def main() -> None:
             bytes=C * PRESEL_MODELS * 9 * 4 + 2 * n_valid * 3 * 4 + C * K
             + C * PRESEL_MODELS * 4,
             ops=PRESEL_MODELS * n_valid * OPS_SAMPSON, peak=PEAK_F32,
+            valid_points=n_valid,
             shape=f"C={C} K={K} H={PRESEL_MODELS} (5-point rescore)"),
     }
     # second shapes of the same kernels: the stereo gather, and the 8-point
@@ -1107,10 +1321,13 @@ def main() -> None:
         # 0, 10, ..., 60 valid preselect points
         rvp = (torch.arange(P_, device=dev)[None, :]
                < (10 * torch.arange(Cr, device=dev))[:, None])
-        check("presel_counts",
-              fivept.presel_counts(rrows, rf1p, rf2p, rvp, 0.05, 8),
-              fivept.presel_counts_ref(rrows, rf1p, rf2p, rvp, 0.05, 8),
-              f"C={Cr} H={Hr} S=8 P={P_}")
+        # 0.05 takes K7's rule; 3.0 lies outside it (division throughout)
+        for rthr in (0.05, 3.0):
+            check("presel_counts",
+                  fivept.presel_counts(rrows, rf1p, rf2p, rvp, rthr, 8),
+                  fivept.presel_counts_ref(rrows, rf1p, rf2p, rvp, rthr, 8),
+                  f"C={Cr} H={Hr} S=8 P={P_} thr={rthr:g}")
+    boundary = boundary_phase(dev, check)
     torch.cuda.synchronize()
 
     # ------------------------------------------------------------------ 4
@@ -1321,6 +1538,9 @@ def main() -> None:
         }
         if routes:
             row["bound_routes"] = routes
+        if "valid_points" in s:
+            # the correspondences the operation bound counts
+            row["valid_points"] = s["valid_points"]
         if name == "fivept_models":
             row.update(ops_per_hypothesis=ops_5pt[S5],
                        ops_nullspace_per_hypothesis=ops_shared,
@@ -1452,6 +1672,7 @@ def main() -> None:
               for r in k.get("other_shapes", []))
         for k in kernels)
     stages["path_vs_plain"] = path_compare
+    stages["boundary_within_one_ulp"] = boundary
     stages.update(chunk=CHUNK, n_hyp=N_HYP, K=K_FEAT, card=card,
                   build_s=build_s,
                   peak_mem_mb=torch.cuda.max_memory_allocated() / 1e6,

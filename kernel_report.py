@@ -9,7 +9,9 @@ library does (`kernels/_build.build_all(verbose=True)`, which adds
 -Xptxas -v), into a fresh directory, and prints per kernel the registers,
 spills and static shared memory ptxas reports and how many of some SASS
 instructions `cuobjdump -sass` shows: FFMA / FMUL / FADD for the f32
-kernels (K6 is built with FMA contraction, K7 - K9 without), IGMMA for the
+kernels (K6 is built with FMA contraction, K7 - K9 without), MUFU and FCHK
+for a division (FCHK tests for its slow path), FSETP for f32 comparisons,
+VOTE for the ballots that compact K7's and K8's valid points, IGMMA for the
 int8 tensor-core product of K1, POPC / VIMNMX for the Hamming kernels.
 Prints one JSON object {"kernel_report": ...} as its last line.
 """
@@ -25,8 +27,9 @@ import subprocess
 import sys
 import tempfile
 
-SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "IGMMA", "IMMA", "POPC",
-            "IMNMX", "VIMNMX", "IMAD", "LOP3", "LDS", "STS", "LDGSTS")
+SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "FCHK", "FSETP", "VOTE",
+            "IGMMA", "IMMA", "POPC", "IMNMX", "VIMNMX", "IMAD", "LOP3", "LDS",
+            "STS", "LDGSTS")
 
 
 def ptxas_info(log: str) -> dict:
@@ -79,12 +82,16 @@ def sass_counts(cuobjdump: str, lib: str) -> dict:
 def short(name: str) -> str:
     """A mangled kernel name -> its plain name: the length-prefixed
     identifier that ends in `_kernel` (`..._N_113fivept_kernelE...` ->
-    `fivept_kernel`)."""
+    `fivept_kernel`), with a bool template argument where it has one
+    (`...20presel_counts_kernelILb1EE...` -> `presel_counts_kernel<true>`)."""
     for m in re.finditer(r"\d+", name):
         for k in range(len(m.group())):
             n = int(m.group()[k:])
             ident = name[m.end():m.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
+                arg = re.match(r"ILb([01])E", name[m.end() + n:])
+                if arg:
+                    ident += "<true>" if arg.group(1) == "1" else "<false>"
                 return ident
     return name
 

@@ -19,8 +19,11 @@ Layouts are the JAX package's, with a leading candidate axis C:
 `fivept_models` (csrc/fivept.cu) and `presel_counts` (csrc/score.cu) are
 hand-written CUDA kernels for tensors on the card; for CPU tensors the
 plain versions below run. Both plain versions are written operation for
-operation in the kernels' order and the kernels are built without FMA
-contraction, so the two paths agree exactly.
+operation in the kernels' order. `presel_counts` is exact: its kernel is
+built without FMA contraction and divides only where a cheaper comparison
+cannot decide the count (the rule and its proof are in csrc/score.cu).
+`fivept_models` contracts and is held to its plain version by a stated
+tolerance (`chip_smoke.py`, tests/test_torch_cuda_kernels.py).
 """
 
 from __future__ import annotations

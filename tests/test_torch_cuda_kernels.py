@@ -19,7 +19,8 @@ compared by its NaN/finite pattern only. Shapes
 are ragged on purpose (K not a multiple of 32, H not a multiple of the
 block's hypothesis tile, Kq != Kt, Kq and Kt one past the pair kernel's
 tiles, more targets than one of its passes, P over one shared-memory
-tile)."""
+tile), and the scoring kernels K7 and K8 also meet residuals that sit on
+the threshold or one ulp beside it."""
 
 import numpy as np
 import pytest
@@ -202,6 +203,191 @@ def test_presel_counts(dev, H, S, P):
     assert got.shape == (C, H, S) and got.dtype == torch.int32
     assert torch.equal(got, fivept.presel_counts_ref(*args, 0.05, S))
     assert int(got.sum()) > 0
+
+
+# Boundary inputs of K8 and K7: residuals placed on the threshold, or one
+# ulp beside it, in the plain versions' float32 operations (numpy float32
+# replays them), by walking one or two inputs of a designated residual
+# over a grid of ulps; a residual whose walk lands on no target keeps its
+# nearest value. Some models hold NaN, +-inf or zeros; candidate 4 has no
+# valid point, candidate 5 one.
+
+
+def _rows32(M, x):
+    return [(M[..., i, 0] * x[..., 0] + M[..., i, 1] * x[..., 1])
+            + M[..., i, 2] * x[..., 2] for i in range(3)]
+
+
+def _walk(x, steps):
+    bits = (x.view(np.int32)[..., None]
+            + np.sign(x).astype(np.int32)[..., None] * steps)
+    return bits.astype(np.int32).view(np.float32)
+
+
+def _land(vals, target, xs):
+    """Move each x of `xs` ((x, steps) pairs, the grid axes of `vals` in
+    order) to the first grid point whose value equals `target`."""
+    hit = vals.reshape(*target.shape, -1) == target[..., None]
+    j, ok = hit.argmax(-1), hit.any(-1)
+    out = []
+    for x, st in reversed(xs):
+        j, k = np.divmod(j, len(st))
+        moved = np.take_along_axis(_walk(x, st), k[..., None], -1)[..., 0]
+        out.append(np.where(ok, moved, x))
+    return out[::-1]
+
+
+def _near(x, t):
+    t = np.float32(t)
+    return ((x >= np.nextafter(t, np.float32(0)))
+            & (x <= np.nextafter(t, np.float32(np.inf))))
+
+
+def _sampson32(E, a, b):
+    ef, et = _rows32(E, a), _rows32(np.swapaxes(E, -1, -2), b)
+    num = (b[..., 0] * ef[0] + b[..., 1] * ef[1]) + b[..., 2] * ef[2]
+    den = ((ef[0] * ef[0] + ef[1] * ef[1]) + et[0] * et[0]) + et[1] * et[1]
+    return (num * num) / np.maximum(den, np.float32(1e-12))
+
+
+def _valid(rs, C, K, share):
+    v = rs.uniform(size=(C, K)) < share
+    v[C - 2] = False
+    v[C - 1] = False
+    v[C - 1, 4] = True
+    return v
+
+
+def _rigid_boundary(rs, C, H, K, thr, share):
+    T = np.float32(thr * thr)
+    tg = np.array([np.nextafter(T, np.float32(0)), T,
+                   np.nextafter(T, np.float32(np.inf))])[np.arange(K) % 3]
+    s = np.sqrt(float(T))
+    R = _so3_exp_np(rs.normal(0, 0.6, (C, H, 3)))
+    t = rs.uniform(-s / 2, s / 2, (C, H, 3)).astype(np.float32)
+    p = rs.uniform(-s, s, (C, 3, K)).astype(np.float32)
+    h = np.arange(K) % H
+    w = _rows32(R[:, h], np.moveaxis(p, 1, -1))
+    w = [w[i] + t[:, h, i] for i in range(3)]
+    u = rs.normal(size=(C, K, 3))
+    u = (s * u / np.linalg.norm(u, axis=-1, keepdims=True)).astype(np.float32)
+    q = np.stack([w[i] + u[..., i] for i in range(3)], 1)
+    st = np.arange(-12, 13)
+    r0 = _walk(q[:, 0], st)[..., :, None] - w[0][..., None, None]
+    r1 = _walk(q[:, 1], st)[..., None, :] - w[1][..., None, None]
+    r2 = (q[:, 2] - w[2])[..., None, None]
+    q[:, 0], q[:, 1] = _land((r0 * r0 + r1 * r1) + r2 * r2,
+                             np.broadcast_to(tg, (C, K)),
+                             [(q[:, 0], st), (q[:, 1], st)])
+    R[:, H - 1, 0, 0] = np.nan
+    R[:, H - 2, 1, 2] = np.inf
+    R[:, H - 3, 2, 1] = -np.inf
+    t[:, H - 4, 0] = np.inf
+    R[:, H - 5], t[:, H - 5] = 0, 0
+    valid = _valid(rs, C, K, share)
+    w = _rows32(R[:, :, None], np.moveaxis(p, 1, -1)[:, None])
+    r = [q[:, None, i] - (w[i] + t[:, :, None, i]) for i in range(3)]
+    d2 = (r[0] * r[0] + r[1] * r[1]) + r[2] * r[2]
+    return (R, t, p, np.ascontiguousarray(q), valid), int(
+        (_near(d2, T) & valid[:, None]).sum())
+
+
+def _presel_boundary(rs, C, H, S, P, thr, share):
+    t32 = np.float32(thr)
+    offsets = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12, -16, 16])
+    tg = _walk(np.array([t32]), offsets)[0][np.arange(P) % len(offsets)]
+    a = rs.normal(size=(C, P, 3))
+    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+    a64 = a.astype(np.float64)
+    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
+    Em = E[:, :P]
+    for i in (0, 1):
+        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
+    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
+    E = E.astype(np.float32)
+    Em = E[:, :P]
+    ef = np.stack(_rows32(Em, a), -1).astype(np.float64)
+    c2 = rs.normal(size=(C, P, 2))
+    c2 /= np.linalg.norm(c2, axis=-1, keepdims=True)
+
+    def bearing(b2):
+        r = np.sqrt(1 - b2 * b2)
+        return np.stack([c2[..., 0] * r, c2[..., 1] * r, b2], -1)
+
+    lo, hi = np.zeros((C, P)), np.ones((C, P))
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        b = bearing(mid)
+        et = np.einsum("cpji,cpj->cpi", Em.astype(np.float64), b)
+        num = np.sum(b * ef, -1)
+        neg = num * num < float(t32) * (ef[..., 0] ** 2 + ef[..., 1] ** 2
+                                        + et[..., 0] ** 2 + et[..., 1] ** 2)
+        lo, hi = np.where(neg, mid, lo), np.where(neg, hi, mid)
+    b = bearing(lo).astype(np.float32)
+    s0, s2 = np.arange(-4, 5), np.arange(-32, 33)
+    grid = np.stack(np.broadcast_arrays(
+        _walk(b[..., 0], s0)[..., :, None], b[..., 1, None, None],
+        _walk(b[..., 2], s2)[..., None, :]), -1)
+    b[..., 0], b[..., 2] = _land(
+        _sampson32(Em[:, :, None, None], a[:, :, None, None], grid),
+        np.broadcast_to(tg, (C, P)), [(b[..., 0], s0), (b[..., 2], s2)])
+    E[:, (H - 1) * S:] = np.nan
+    E[:, (H - 2) * S, 0, 0] = np.inf
+    E[:, (H - 2) * S + 1, 1, 2] = -np.inf
+    E[:, (H - 2) * S + 2] = np.inf
+    E[:, (H - 3) * S:(H - 2) * S] = 0
+    valid = _valid(rs, C, P, share)
+    err = _sampson32(E[:, :, None], a[:, None], b[:, None])
+    rows = E.reshape(C, H, S, 9).transpose(0, 3, 2, 1).reshape(C, 9 * S, H)
+    return (np.ascontiguousarray(rows), np.ascontiguousarray(
+        np.moveaxis(a, -1, 1)), np.ascontiguousarray(np.moveaxis(b, -1, 1)),
+        valid), int((_near(err, t32) & valid[:, None]).sum())
+
+
+@pytest.mark.parametrize("share", [1.0, 0.6])
+@pytest.mark.parametrize("thr", [0.3, 0.25])
+def test_counts_boundary(dev, thr, share):
+    """K8 at residuals on the threshold (thr^2 = 0.09 and 2^-4), K = 1100,
+    every point valid or 60 % scattered: counts equal."""
+    rs = np.random.default_rng(6)
+    inputs, near = _rigid_boundary(rs, 6, 45, 1100, thr, share)
+    assert near >= 100
+    args = [torch.from_numpy(x).to(dev) for x in inputs]
+    n0 = _build.launches["rigid_counts"]
+    got = score.rigid_counts(*args, thr)
+    assert _build.launches["rigid_counts"] == n0 + 1
+    assert torch.equal(got, score.rigid_counts_ref(*args, thr))
+
+
+@pytest.mark.parametrize("share", [1.0, 0.6])
+@pytest.mark.parametrize("thr", [1e-6, 0.05, 0.0625])
+def test_presel_counts_boundary(dev, thr, share):
+    """K7 at Sampson errors on the threshold and across the band where its
+    rule divides, P = 300 (two tiles), every point valid or 60 %
+    scattered, NaN / inf / zero models: counts equal."""
+    rs = np.random.default_rng(7)
+    inputs, near = _presel_boundary(rs, 6, 45, 8, 300, thr, share)
+    assert near >= 100
+    args = [torch.from_numpy(x).to(dev) for x in inputs]
+    n0 = _build.launches["presel_counts"]
+    got = fivept.presel_counts(*args, thr, 8)
+    assert _build.launches["presel_counts"] == n0 + 1
+    assert torch.equal(got, fivept.presel_counts_ref(*args, thr, 8))
+
+
+@pytest.mark.parametrize("thr", [3.0, 1e-30])
+def test_presel_counts_outside_rule(dev, thr):
+    """Thresholds outside 2^-60 .. 1, where K7 divides for every residual
+    (the launcher's other instantiation): counts equal."""
+    rs = np.random.default_rng(8)
+    C, H, S, P = 3, 45, 4, 300
+    E_rows = rs.normal(size=(C, 9 * S, H)).astype(np.float32)
+    f1, f2 = rs.normal(size=(2, C, 3, P)).astype(np.float32)
+    E_rows[1, :9 * S:S, 0] = 0       # an all-zero model: err is 0 / 1e-12
+    valid = rs.uniform(size=(C, P)) < 0.6
+    args = [torch.from_numpy(x).to(dev) for x in (E_rows, f1, f2, valid)]
+    got = fivept.presel_counts(*args, thr, S)
+    assert torch.equal(got, fivept.presel_counts_ref(*args, thr, S))
 
 
 def _top2_case(rs, Kq, Kt):

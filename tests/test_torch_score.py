@@ -88,3 +88,54 @@ def test_counts_ignore_invalid_and_empty():
                               ("R_h", "t_h", "p", "q")), none, 0.3) == 0).all()
     assert (ts.essential_counts(*(torch.from_numpy(s[k]) for k in
                                   ("E_h", "f1", "f2")), none, 1e-6) == 0).all()
+
+
+# K7's decision rule (kernels/csrc/score.cu, `presel_counts_kernel`), in
+# numpy float32: err = n / d < thr decided by n < RN(RN(thr (1 - 2^-20)) d)
+# (counted) or n > RN(RN(thr (1 + 2^-20)) d) (not counted), the division
+# only between; taken for 2^-60 <= thr <= 1, the division always otherwise
+_BELOW, _ABOVE = np.float32(1 - 2.0 ** -20), np.float32(1 + 2.0 ** -20)
+
+
+def _presel_rule(n, d, thr):
+    """The kernel's count decision, replayed in its order: (decision,
+    whether the division was taken)."""
+    thr = np.float32(thr)
+    if not 2.0 ** -60 <= thr <= 1.0:
+        return n / d < thr, np.ones(n.shape, bool)
+    inside = n < (thr * _BELOW) * d
+    undecided = ~(inside | (n > (thr * _ABOVE) * d))
+    return np.where(undecided, n / d < thr, inside), undecided
+
+
+@pytest.mark.parametrize("thr", [
+    1e-6, 0.05, 0.0625, 1.0, 2.0 ** -60,
+    # thr * d at the bottom of the normal range, a subnormal thr, thr > 1:
+    # the rule is not taken
+    1.2e-26, 1e-40, 3.0])
+def test_presel_rule_equals_division(thr):
+    """Every (n, d) with n walked over +-64 ulps of RN(thr d), for d
+    log-uniform from the clamp value 1e-12 to 1e38 and at 1e-12, FLT_MAX / 3,
+    FLT_MAX and inf, plus 0, subnormal, NaN and +-inf operands: the rule
+    decides as n / d < thr does."""
+    f32 = np.float32
+    big = np.finfo(f32).max
+    rs = np.random.default_rng(0)
+    d = np.concatenate([10.0 ** rs.uniform(-12, 38, 1024),
+                        [1e-12, big / 3, big, np.inf]]).astype(f32)
+    with np.errstate(all="ignore"):
+        p = f32(thr) * d
+        steps = np.arange(-64, 65, dtype=np.int32)
+        n = (p.view(np.int32)[:, None] + steps).view(f32)
+        n = np.concatenate([n, np.broadcast_to(np.array(
+            [0, 1e-45, 1e-38, 1.0, big, np.inf, np.nan], f32), (len(d), 7))],
+            1)
+        n, dd = np.broadcast_arrays(n, d[:, None])
+        n = np.concatenate([n.ravel(), [1.0, np.nan, np.inf]]).astype(f32)
+        dd = np.concatenate([dd.ravel(), [np.nan, 1.0, np.inf]]).astype(f32)
+        got, divided = _presel_rule(n, dd, thr)
+        np.testing.assert_array_equal(got, n / dd < f32(thr))
+    if 2.0 ** -60 <= thr <= 1.0:
+        # both branches run: the walk crosses the band of about 8 ulps
+        # on either side where the rule divides
+        assert 0 < divided.mean() < 0.3
