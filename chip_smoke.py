@@ -28,8 +28,8 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     the detection on the card equals the detection on the CPU for
     `make_world(6, 256, 704, seed=1)`.
 
-K7 and K8 are also held to their plain versions on inputs built so that
-hundreds of residuals sit on the threshold or one ulp beside it (the
+K7, K8 and K9 are also held to their plain versions on inputs built so
+that hundreds of residuals sit on the threshold or one ulp beside it (the
 boundary phase).
 
 Kernel counts are set to 0 just before each path and read just after;
@@ -344,8 +344,8 @@ def clean_fivept_samples(C: int, H: int, seed: int):
     return out
 
 
-# Boundary inputs of K8 and K7: residuals placed on the threshold, or a few
-# ulps beside it, in the plain versions' float32 operations (numpy float32
+# Boundary inputs of K8, K7 and K9: residuals placed on the threshold, or a
+# few ulps beside it, in the plain versions' float32 operations (numpy float32
 # replays them), by walking one or two inputs of a designated residual
 # over a grid of ulps; a residual whose walk lands on no target keeps its
 # nearest value. Some models hold NaN, +-inf or zeros; the last candidate
@@ -441,34 +441,25 @@ def rigid_boundary(rs, C, H, K, thr, share):
         (_near(d2, T) & valid[:, None]).sum())
 
 
-# ulps from the threshold at which K7's boundary residuals are placed: half
-# within one ulp, the rest across the band where the kernel's rule divides
-# (|n / d - thr| within about thr 2^-20: 4 - 16 ulps) and just outside it
-PRESEL_OFFSETS = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12,
+# ulps from the threshold at which the Sampson boundary residuals (K7, K9)
+# are placed: half within one ulp, the rest across the band where the
+# kernels' rule divides (|n / d - thr| within about thr 2^-20: 4 - 16 ulps)
+# and just outside it
+SAMPSON_OFFSETS = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12,
                            -16, 16])
 
 
-def presel_boundary(rs, C, H, S, P, thr, share):
-    """K7's inputs (rows (C, 9 S, H), f1, f2 (C, 3, P), valid) with the
-    squared Sampson error of model p (flat (h, s) order) at point p
-    PRESEL_OFFSETS[p % 14] ulps from float32(thr), and the number of
-    residuals of valid points within one ulp of it. Model p's first two
-    rows are orthogonal to f1_p, so num = f2 . (E f1) is mostly b2 (E f1)_2
-    and moves by about an ulp per ulp of b2: b2 comes from bisection in
-    float64, then b0 and b2 are walked over a grid of ulps."""
+def bearings_on_threshold(rs, Em, a, thr):
+    """f2 bearings b (C, P, 3) with the squared Sampson error of model
+    Em[:, p] (C, P, 3, 3) at (a_p, b_p) SAMPSON_OFFSETS[p % 14] ulps from
+    float32(thr). The first two rows of each model are orthogonal to its
+    a, so num = f2 . (E f1) is mostly b2 (E f1)_2 and moves by about an ulp
+    per ulp of b2: b2 comes from bisection in float64, then b0 and b2 are
+    walked over a grid of ulps."""
+    C, P = a.shape[:2]
     t32 = np.float32(thr)
-    tg = _walk(np.array([t32]), PRESEL_OFFSETS)[0][
-        np.arange(P) % len(PRESEL_OFFSETS)]
-    a = rs.normal(size=(C, P, 3))
-    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
-    a64 = a.astype(np.float64)
-    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
-    Em = E[:, :P]
-    for i in (0, 1):
-        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
-    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
-    E = E.astype(np.float32)
-    Em = E[:, :P]
+    tg = _walk(np.array([t32]), SAMPSON_OFFSETS)[0][
+        np.arange(P) % len(SAMPSON_OFFSETS)]
     ef = np.stack(_rows32(Em, a), -1).astype(np.float64)
     c2 = rs.normal(size=(C, P, 2))
     c2 /= np.linalg.norm(c2, axis=-1, keepdims=True)
@@ -494,6 +485,25 @@ def presel_boundary(rs, C, H, S, P, thr, share):
     b[..., 0], b[..., 2] = _land(
         _sampson32(Em[:, :, None, None], a[:, :, None, None], grid),
         np.broadcast_to(tg, (C, P)), [(b[..., 0], s0), (b[..., 2], s2)])
+    return b
+
+
+def presel_boundary(rs, C, H, S, P, thr, share):
+    """K7's inputs (rows (C, 9 S, H), f1, f2 (C, 3, P), valid) with the
+    squared Sampson error of model p (flat (h, s) order) at point p on the
+    threshold (`bearings_on_threshold`), and the number of residuals of
+    valid points within one ulp of it. Model p's first two rows are made
+    orthogonal to a random f1_p."""
+    a = rs.normal(size=(C, P, 3))
+    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+    a64 = a.astype(np.float64)
+    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
+    Em = E[:, :P]
+    for i in (0, 1):
+        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
+    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
+    E = E.astype(np.float32)
+    b = bearings_on_threshold(rs, E[:, :P], a, thr)
     # all NaN: the models of a candidate without correspondences
     E[:, (H - 1) * S:] = np.nan
     E[:, (H - 2) * S, 0, 0] = np.inf
@@ -506,19 +516,51 @@ def presel_boundary(rs, C, H, S, P, thr, share):
     rows = E.reshape(C, H, S, 9).transpose(0, 3, 2, 1).reshape(C, 9 * S, H)
     return (np.ascontiguousarray(rows), np.ascontiguousarray(
         np.moveaxis(a, -1, 1)), np.ascontiguousarray(np.moveaxis(b, -1, 1)),
-        valid), int((_near(err, t32) & valid[:, None]).sum())
+        valid), int((_near(err, thr) & valid[:, None]).sum())
+
+
+def essential_boundary(rs, C, H, K, thr, share):
+    """K9's inputs (E (C, H, 3, 3), f1, f2 (C, 3, K), valid) with the
+    squared Sampson error of model k % H at point k on the threshold
+    (`bearings_on_threshold`), and the number of residuals of valid points
+    within one ulp of it. Point k's f1 is the unit normal of its model's
+    first two rows, of random sign. Some models hold NaN, +-inf or zeros;
+    every model of candidate C - 2 (no valid point) is NaN, as
+    `ransac_essential` passes them."""
+    E = rs.normal(size=(C, H, 3, 3))
+    n = np.cross(E[..., 0, :], E[..., 1, :])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    E[..., 2, :] = n + 0.3 * E[..., 2, :]
+    E = E.astype(np.float32)
+    h = np.arange(K) % H
+    sign = np.where(rs.uniform(size=(C, K, 1)) < 0.5, -1.0, 1.0)
+    a = (sign * n[:, h]).astype(np.float32)
+    b = bearings_on_threshold(rs, E[:, h], a, thr)
+    E[:, H - 1] = np.nan
+    E[:, H - 2, 0, 0] = np.inf
+    E[:, H - 3, 1, 2] = -np.inf
+    E[:, H - 4] = np.inf
+    E[:, H - 5] = 0
+    E[C - 2] = np.nan
+    valid = _valid(rs, C, K, share)
+    with np.errstate(invalid="ignore"):
+        err = _sampson32(E[:, :, None], a[:, None], b[:, None])
+    return (E, np.ascontiguousarray(np.moveaxis(a, -1, 1)),
+            np.ascontiguousarray(np.moveaxis(b, -1, 1)), valid), int(
+        (_near(err, thr) & valid[:, None]).sum())
 
 
 def boundary_phase(dev, check) -> dict:
-    """Boundary counts: K8 and K7 against their plain versions on inputs
-    whose residuals sit on the threshold (`rigid_boundary`,
-    `presel_boundary`), for the path's, power-of-two and other thresholds,
-    with every point valid or 60 % scattered. Fails unless the counts are
-    equal and each launch has at least BOUNDARY_MIN residuals of valid
-    points within one ulp of its threshold. Returns those numbers."""
+    """Boundary counts: K8, K7 and K9 against their plain versions on
+    inputs whose residuals sit on the threshold (`rigid_boundary`,
+    `presel_boundary`, `essential_boundary`), for the path's, power-of-two
+    and other thresholds, with every point valid or 60 % scattered. Fails
+    unless the counts are equal and each launch has at least BOUNDARY_MIN
+    residuals of valid points within one ulp of its threshold. Returns
+    those numbers."""
     from kimera_multi_tpu_torch.kernels import fivept, score
 
-    rs = np.random.default_rng(11)
+    rs, rs9 = np.random.default_rng(11), np.random.default_rng(12)
     C, H, K, S, P = 6, 45, 1101, 8, 300
     out = {}
     for share in (1.0, 0.6):
@@ -536,6 +578,12 @@ def boundary_phase(dev, check) -> dict:
             check("presel_counts", fivept.presel_counts(*args, thr, S),
                   fivept.presel_counts_ref(*args, thr, S), what)
             out[f"presel_counts {what}"] = near
+            inputs, near = essential_boundary(rs9, C, H, K, thr, share)
+            args = [torch.from_numpy(x).to(dev) for x in inputs]
+            what = f"C={C} K={K} H={H} thr={thr:g} valid {share:g}"
+            check("essential_counts", score.essential_counts(*args, thr),
+                  score.essential_counts_ref(*args, thr), what)
+            out[f"essential_counts {what}"] = near
     log(f"  boundary counts: residuals of valid points within one ulp of "
         f"the threshold per launch {out} (limit: at least {BOUNDARY_MIN})")
     low = {k: n for k, n in out.items() if n < BOUNDARY_MIN}
@@ -1269,6 +1317,21 @@ def main() -> None:
         check("sample_gather_t", gather.sample_gather_t(rdata, rp),
               gather.sample_gather_t_ref(rdata, rp),
               f"C={Cr} K={Kt} H={Hr} k={k}")
+    # K4 at a K too large to stage `order` and `data` (the kernel's cached
+    # path), `order` holding entries outside [0, K) (clamped)
+    KL = 20000
+    rdl = rnd(Cr, 3, KL)
+    rpl = torch.randint(0, KL, (Cr, Hr, 5), generator=g,
+                        dtype=torch.int32).to(dev)
+    rol = torch.stack([torch.randperm(KL, generator=g)
+                       for _ in range(Cr)]).to(torch.int32).to(dev)
+    rol[0, :3] = torch.tensor([-4, KL, KL + 100], dtype=torch.int32)
+    rpl[0, :3, 0] = torch.arange(3, dtype=torch.int32)
+    check("sample_gather_perm_t",
+          gather.sample_gather_perm_t(rdl, rpl, rol, torch.argsort(
+              rol, dim=1).to(torch.int32)),
+          gather.sample_gather_perm_t_ref(rdl, rpl, rol),
+          f"C={Cr} K={KL} H={Hr} k=5 (not staged)")
     ridx = torch.randint(0, Kt, (Cr, Kq), generator=g,
                          dtype=torch.int32).to(dev)
     check("permute_cols", gather.permute_cols(rdata, ridx),
@@ -1283,10 +1346,12 @@ def main() -> None:
           f"C={Cr} K={Kt} H={Hr}")
     rf1 = rp3 / rp3.norm(dim=1, keepdim=True)
     rf2 = rq3 / rq3.norm(dim=1, keepdim=True)
-    check("essential_counts",
-          score.essential_counts(rR, rf1, rf2, rvalid, 0.05),
-          score.essential_counts_ref(rR, rf1, rf2, rvalid, 0.05),
-          f"C={Cr} K={Kt} H={Hr}")
+    # 0.05 takes the rule of K7 and K9; 3.0 lies outside it (division)
+    for rthr in (0.05, 3.0):
+        check("essential_counts",
+              score.essential_counts(rR, rf1, rf2, rvalid, rthr),
+              score.essential_counts_ref(rR, rf1, rf2, rvalid, rthr),
+              f"C={Cr} K={Kt} H={Hr} thr={rthr:g}")
     # five-point samples drawn the path's way from masks with 704, 40, 4
     # (fewer than 5: repeated indices, degenerate designs) and 0 valid
     rmask = torch.zeros(4, K, dtype=torch.bool, device=dev)

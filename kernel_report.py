@@ -11,8 +11,10 @@ spills and static shared memory ptxas reports and how many of some SASS
 instructions `cuobjdump -sass` shows: FFMA / FMUL / FADD for the f32
 kernels (K6 is built with FMA contraction, K7 - K9 without), MUFU and FCHK
 for a division (FCHK tests for its slow path), FSETP for f32 comparisons,
-VOTE for the ballots that compact K7's and K8's valid points, IGMMA for the
-int8 tensor-core product of K1, POPC / VIMNMX for the Hamming kernels.
+VOTE for the ballots that compact the valid points of K7 - K9, IGMMA for
+the int8 tensor-core product of K1, POPC / VIMNMX for the Hamming kernels,
+LDG / STG / LDS / STS for the loads and stores of the gathers (K4's two
+instantiations as `sample_gather_perm_kernel<true>` (staged) / `<false>`).
 Prints one JSON object {"kernel_report": ...} as its last line.
 """
 
@@ -29,7 +31,7 @@ import tempfile
 
 SASS_OPS = ("FFMA", "FMUL", "FADD", "MUFU", "FCHK", "FSETP", "VOTE",
             "IGMMA", "IMMA", "POPC", "IMNMX", "VIMNMX", "IMAD", "LOP3", "LDS",
-            "STS", "LDGSTS")
+            "STS", "LDGSTS", "LDG", "STG")
 
 
 def ptxas_info(log: str) -> dict:

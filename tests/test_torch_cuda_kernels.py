@@ -19,8 +19,8 @@ compared by its NaN/finite pattern only. Shapes
 are ragged on purpose (K not a multiple of 32, H not a multiple of the
 block's hypothesis tile, Kq != Kt, Kq and Kt one past the pair kernel's
 tiles, more targets than one of its passes, P over one shared-memory
-tile), and the scoring kernels K7 and K8 also meet residuals that sit on
-the threshold or one ulp beside it."""
+tile, K4 at a K too large to stage), and the scoring kernels K7, K8 and
+K9 also meet residuals that sit on the threshold or one ulp beside it."""
 
 import numpy as np
 import pytest
@@ -67,21 +67,33 @@ def test_pair_top2(dev, Kq, Kt, all_equal):
         assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("k,K,H", [(3, 75, 500), (8, 704, 37)])
-def test_gathers(dev, k, K, H):
+@pytest.mark.parametrize("k,K,H,D", [
+    (3, 75, 500, 3), (8, 704, 37, 3), (1, 704, 500, 3), (5, 704, 500, 3),
+    (3, 704, 1030, 3), (5, 20000, 37, 3), (8, 20000, 500, 3),
+    (5, 704, 37, 1), (3, 1101, 500, 6), (12, 704, 600, 3)])
+def test_gathers(dev, k, K, H, D):
+    """K4 with H off its hypothesis tile (37, 500, 600, 1030), k = 1 - 8 and
+    12 (two passes), K too large to stage (20,000: read through the
+    cache), D = 1, 3 and 6, `picks` and `order` holding entries -4, K and
+    K + 100 (clamped, not read outside the candidate); K5 beside it."""
     rs = np.random.default_rng(1)
     C = 4
-    data = torch.from_numpy(rs.normal(size=(C, 3, K)).astype(np.float32))
+    data = torch.from_numpy(rs.normal(size=(C, D, K)).astype(np.float32))
     picks = torch.from_numpy(rs.integers(0, K, (C, H, k)).astype(np.int32))
     order = torch.from_numpy(np.stack(
         [rs.permutation(K) for _ in range(C)]).astype(np.int32))
     inv = torch.argsort(order, dim=1).to(torch.int32)
+    oob = torch.tensor([-4, K, K + 100], dtype=torch.int32)
+    picks[0, :3, 0], picks[C - 1, H - 1, k - 1] = oob, K
+    order[1, :3], order[C - 1, K - 1] = oob, -4
     data, picks, order, inv = (x.to(dev) for x in (data, picks, order, inv))
+    n0 = _build.launches["sample_gather_perm_t"]
     got = gather.sample_gather_perm_t(data, picks, order, inv)
+    assert _build.launches["sample_gather_perm_t"] == n0 + 1
     assert torch.equal(got, gather.sample_gather_perm_t_ref(data, picks,
                                                             order))
     idx = torch.from_numpy(rs.integers(0, K, (C, K + 5)).astype(np.int32))
-    idx[0, :3] = torch.tensor([-4, K, K + 100])  # clamped, not read outside
+    idx[0, :3] = oob  # clamped, not read outside
     idx = idx.to(dev)
     assert torch.equal(gather.permute_cols(data, idx),
                        gather.permute_cols_ref(data, idx))
@@ -205,7 +217,7 @@ def test_presel_counts(dev, H, S, P):
     assert int(got.sum()) > 0
 
 
-# Boundary inputs of K8 and K7: residuals placed on the threshold, or one
+# Boundary inputs of K8, K7 and K9: residuals placed on the threshold, or one
 # ulp beside it, in the plain versions' float32 operations (numpy float32
 # replays them), by walking one or two inputs of a designated residual
 # over a grid of ulps; a residual whose walk lands on no target keeps its
@@ -292,20 +304,22 @@ def _rigid_boundary(rs, C, H, K, thr, share):
         (_near(d2, T) & valid[:, None]).sum())
 
 
-def _presel_boundary(rs, C, H, S, P, thr, share):
+# ulps from the threshold at which the Sampson boundary residuals sit: half
+# within one ulp, the rest across the band where the rule of K7 and K9
+# divides (4 - 16 ulps) and just outside it
+_OFFSETS = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12, -16, 16])
+
+
+def _bearings_on_threshold(rs, Em, a, thr):
+    """f2 bearings b (C, P, 3) with the squared Sampson error of model
+    Em[:, p] at (a_p, b_p) _OFFSETS[p % 14] ulps from float32(thr). The
+    first two rows of each model are orthogonal to its a, so
+    num = f2 . (E f1) is mostly b2 (E f1)_2 and moves by about an ulp per
+    ulp of b2: b2 comes from bisection in float64, then b0 and b2 are
+    walked over a grid of ulps."""
+    C, P = a.shape[:2]
     t32 = np.float32(thr)
-    offsets = np.array([-1, 0, 1, -1, 0, 1, -4, 4, -8, 8, -12, 12, -16, 16])
-    tg = _walk(np.array([t32]), offsets)[0][np.arange(P) % len(offsets)]
-    a = rs.normal(size=(C, P, 3))
-    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
-    a64 = a.astype(np.float64)
-    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
-    Em = E[:, :P]
-    for i in (0, 1):
-        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
-    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
-    E = E.astype(np.float32)
-    Em = E[:, :P]
+    tg = _walk(np.array([t32]), _OFFSETS)[0][np.arange(P) % len(_OFFSETS)]
     ef = np.stack(_rows32(Em, a), -1).astype(np.float64)
     c2 = rs.normal(size=(C, P, 2))
     c2 /= np.linalg.norm(c2, axis=-1, keepdims=True)
@@ -331,6 +345,20 @@ def _presel_boundary(rs, C, H, S, P, thr, share):
     b[..., 0], b[..., 2] = _land(
         _sampson32(Em[:, :, None, None], a[:, :, None, None], grid),
         np.broadcast_to(tg, (C, P)), [(b[..., 0], s0), (b[..., 2], s2)])
+    return b
+
+
+def _presel_boundary(rs, C, H, S, P, thr, share):
+    a = rs.normal(size=(C, P, 3))
+    a = (a / np.linalg.norm(a, axis=-1, keepdims=True)).astype(np.float32)
+    a64 = a.astype(np.float64)
+    E = rs.normal(size=(C, H * S, 3, 3))   # model p scores point p
+    Em = E[:, :P]
+    for i in (0, 1):
+        Em[..., i, :] -= np.sum(Em[..., i, :] * a64, -1, keepdims=True) * a64
+    Em[..., 2, :] = a64 + 0.3 * Em[..., 2, :]
+    E = E.astype(np.float32)
+    b = _bearings_on_threshold(rs, E[:, :P], a, thr)
     E[:, (H - 1) * S:] = np.nan
     E[:, (H - 2) * S, 0, 0] = np.inf
     E[:, (H - 2) * S + 1, 1, 2] = -np.inf
@@ -341,7 +369,35 @@ def _presel_boundary(rs, C, H, S, P, thr, share):
     rows = E.reshape(C, H, S, 9).transpose(0, 3, 2, 1).reshape(C, 9 * S, H)
     return (np.ascontiguousarray(rows), np.ascontiguousarray(
         np.moveaxis(a, -1, 1)), np.ascontiguousarray(np.moveaxis(b, -1, 1)),
-        valid), int((_near(err, t32) & valid[:, None]).sum())
+        valid), int((_near(err, np.float32(thr)) & valid[:, None]).sum())
+
+
+def _essential_boundary(rs, C, H, K, thr, share):
+    """K9's inputs (E (C, H, 3, 3), f1, f2 (C, 3, K), valid): model k % H
+    scores point k on the threshold (`_bearings_on_threshold`), its f1 the
+    unit normal of the model's first two rows, of random sign. NaN, inf and
+    zero models; every model of candidate C - 2 (no valid point) is NaN, as
+    `ransac_essential` passes them."""
+    E = rs.normal(size=(C, H, 3, 3))
+    n = np.cross(E[..., 0, :], E[..., 1, :])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    E[..., 2, :] = n + 0.3 * E[..., 2, :]
+    E = E.astype(np.float32)
+    h = np.arange(K) % H
+    sign = np.where(rs.uniform(size=(C, K, 1)) < 0.5, -1.0, 1.0)
+    a = (sign * n[:, h]).astype(np.float32)
+    b = _bearings_on_threshold(rs, E[:, h], a, thr)
+    E[:, H - 1] = np.nan
+    E[:, H - 2, 0, 0] = np.inf
+    E[:, H - 3, 1, 2] = -np.inf
+    E[:, H - 4] = np.inf
+    E[:, H - 5] = 0
+    E[C - 2] = np.nan
+    valid = _valid(rs, C, K, share)
+    err = _sampson32(E[:, :, None], a[:, None], b[:, None])
+    return (E, np.ascontiguousarray(np.moveaxis(a, -1, 1)),
+            np.ascontiguousarray(np.moveaxis(b, -1, 1)), valid), int(
+        (_near(err, np.float32(thr)) & valid[:, None]).sum())
 
 
 @pytest.mark.parametrize("share", [1.0, 0.6])
@@ -388,6 +444,38 @@ def test_presel_counts_outside_rule(dev, thr):
     args = [torch.from_numpy(x).to(dev) for x in (E_rows, f1, f2, valid)]
     got = fivept.presel_counts(*args, thr, S)
     assert torch.equal(got, fivept.presel_counts_ref(*args, thr, S))
+
+
+@pytest.mark.parametrize("share", [1.0, 0.6])
+@pytest.mark.parametrize("thr", [1e-6, 0.05, 0.0625])
+def test_essential_counts_boundary(dev, thr, share):
+    """K9 at Sampson errors on the threshold and across the band where its
+    rule divides, K = 1101 (two staging tiles), every point valid or 60 %
+    scattered, NaN / inf / zero models: counts equal."""
+    rs = np.random.default_rng(9)
+    inputs, near = _essential_boundary(rs, 6, 45, 1101, thr, share)
+    assert near >= 100
+    args = [torch.from_numpy(x).to(dev) for x in inputs]
+    n0 = _build.launches["essential_counts"]
+    got = score.essential_counts(*args, thr)
+    assert _build.launches["essential_counts"] == n0 + 1
+    assert torch.equal(got, score.essential_counts_ref(*args, thr))
+
+
+@pytest.mark.parametrize("thr", [3.0, 1e-30])
+def test_essential_counts_outside_rule(dev, thr):
+    """Thresholds outside 2^-60 .. 1, where K9 divides for every residual
+    (the launcher's other instantiation): counts equal."""
+    rs = np.random.default_rng(10)
+    C, H, K = 3, 300, 1101
+    E = rs.normal(size=(C, H, 3, 3)).astype(np.float32)
+    f1, f2 = rs.normal(size=(2, C, 3, K)).astype(np.float32)
+    E[1, 0] = 0                      # an all-zero model: err is 0 / 1e-12
+    E[2, 1] = np.nan
+    valid = rs.uniform(size=(C, K)) < 0.6
+    args = [torch.from_numpy(x).to(dev) for x in (E, f1, f2, valid)]
+    got = score.essential_counts(*args, thr)
+    assert torch.equal(got, score.essential_counts_ref(*args, thr))
 
 
 def _top2_case(rs, Kq, Kt):
