@@ -722,17 +722,24 @@ def db_top2_phase(desc_store, check) -> dict:
     log(f"  hamming_top2 self-match: d1 == 0 for all {Kq} queries, i1 is "
         f"the query's own row for {n_own} (an equal earlier row otherwise)")
 
-    # ragged sets: duplicated rows (ties), a tie on a split boundary
+    # ragged sets: duplicated rows (ties), a query's exact copy on both
+    # sides of a split boundary (query qs) and of a chunk boundary inside a
+    # split (query qc); at Kq = 1500 those queries lie in the second and
+    # in the third, ragged block of 704 queries
     rs = np.random.default_rng(5)
-    for Kq_, Kt_, n_splits in ((64, 512, None), (200, 3000, 7),
-                               (704, 8192, 5)):
+    cut = hamming._TOP2_TILE
+    for Kq_, Kt_, n_splits, qs, qc in ((64, 512, None, 0, 1),
+                                       (200, 3000, 7, 0, 1),
+                                       (704, 8192, 5, 0, 1),
+                                       (1500, 4000, 3, 1499, 705)):
         t = rs.integers(0, 256, (Kt_, 32), dtype=np.uint8)
         t[1::2] = t[0::2]
         q = t[rs.integers(0, Kt_, Kq_)].copy()
-        q[:, 9] ^= rs.integers(0, 256, Kq_, dtype=np.uint8)
+        q[:, 9] ^= rs.integers(1, 256, Kq_, dtype=np.uint8)
         split = hamming.top2_split_rows(Kq_, Kt_, n_splits, dev)
-        t[split - 1] = q[0]
-        t[split] = q[0]
+        t[split - 1] = t[split] = q[qs]
+        if split > cut + 1:
+            t[cut - 1] = t[cut] = q[qc]
         bq = hamming.unpack_bits(torch.from_numpy(q).to(dev)).to(
             torch.bfloat16)
         bt = hamming.unpack_bits(torch.from_numpy(t).to(dev)).to(
@@ -740,8 +747,12 @@ def db_top2_phase(desc_store, check) -> dict:
         g = hamming._hamming_top2(bq, bt, n_splits)
         check("hamming_top2", g, hamming._hamming_top2_ref(bq, bt),
               f"Kq={Kq_} Kt={Kt_} split={split} (ties)")
-        if int(g[2][0]) != split - 1 or float(g[1][0]) != 0.0:
+        if int(g[2][qs]) != split - 1 or float(g[1][qs]) != 0.0:
             fail("hamming_top2: a tie across a split boundary did not keep "
+                 "the first index")
+        if split > cut + 1 and (int(g[2][qc]) != cut - 1
+                                or float(g[1][qc]) != 0.0):
+            fail("hamming_top2: a tie across a chunk boundary did not keep "
                  "the first index")
 
     n_bytes = (Kq + Kt) * 256 * 2 + Kq * 12
@@ -757,6 +768,8 @@ def db_top2_phase(desc_store, check) -> dict:
             torch.mm(bits_q, bits_t[lo:lo + chunk].T)
 
     library_ms = device_ms(library, iters=5)
+    rows = hamming.top2_split_rows(Kq, Kt, None, dev)
+    blocks = -(-Kq // hamming._TOP2_QUERIES) * -(-Kt // rows)
     del bits_t
     torch.cuda.empty_cache()
     log(f"  hamming_top2           {ms:8.4f} ms  plain {plain_ms:9.3f} ms  "
@@ -773,6 +786,13 @@ def db_top2_phase(desc_store, check) -> dict:
         "library_call": "bits_q @ bits_t.T in bf16 over chunks of 65536 "
                         "targets (cuBLAS; no top-2)",
         "bytes": n_bytes, "ops": ops, "bound_routes": routes,
+        "int8_route": "wgmma m64n176k32 s8 x s8 -> s32: queries as A "
+                      "(2q - 1 bytes), database rows narrowed from bf16 "
+                      "to -t bytes (0 / -1) as B",
+        "layout": "all queries of a group of 704 in one block (11 tiles, "
+                  "176 KB), one 176-row B stage, the next chunk loaded "
+                  "through registers; one split of the database a block",
+        "blocks": blocks, "rows_per_split": rows,
         "path": "its own entry point, hamming_top2_pallas; no path of the "
                 "JAX package calls it",
         "shape": f"Kq={Kq} Kt={Kt} (one keyframe against the fleet's "
@@ -1317,6 +1337,27 @@ def main() -> None:
         check("sample_gather_t", gather.sample_gather_t(rdata, rp),
               gather.sample_gather_t_ref(rdata, rp),
               f"C={Cr} K={Kt} H={Hr} k={k}")
+    # K3 with H off and over its block of 256 pairs, k over one pass of 8
+    KG = 2500
+    rdg = rnd(Cr, 3, KG)
+    for Hg, kg in ((1, 9), (33, 3), (513, 9), (100, 8)):
+        rpg = torch.randint(0, KG, (Cr, Hg, kg), generator=g,
+                            dtype=torch.int32).to(dev)
+        rpg[0, 0, 0], rpg[1, Hg - 1, kg - 1] = -2, KG + 9   # clamped
+        check("sample_gather_t", gather.sample_gather_t(rdg, rpg),
+              gather.sample_gather_t_ref(rdg, rpg),
+              f"C={Cr} K={KG} H={Hg} k={kg}")
+    # K3 with D != 3 (k = 1 too takes the staged kernel there), drawn from
+    # its own generator so the later inputs stay as they were
+    gd = torch.Generator().manual_seed(11)
+    for Dg, Hg, kg in ((1, 64, 1), (6, 100, 1), (6, 33, 3)):
+        rdd = torch.randn((Cr, Dg, KG), generator=gd).to(dev)
+        rpg = torch.randint(0, KG, (Cr, Hg, kg), generator=gd,
+                            dtype=torch.int32).to(dev)
+        rpg[0, 0, 0], rpg[1, Hg - 1, kg - 1] = -2, KG + 9   # clamped
+        check("sample_gather_t", gather.sample_gather_t(rdd, rpg),
+              gather.sample_gather_t_ref(rdd, rpg),
+              f"C={Cr} D={Dg} K={KG} H={Hg} k={kg}")
     # K4 at a K too large to stage `order` and `data` (the kernel's cached
     # path), `order` holding entries outside [0, K) (clamped)
     KL = 20000
@@ -1570,6 +1611,13 @@ def main() -> None:
         return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else \
             "operations"
 
+    # the launch floor: a kernel that does nothing, with K3's grid and
+    # block at the path's shape, timed as the kernels are
+    floor_ms = device_ms(lambda: gather.empty_launch(C, PRESEL_PTS, dev))
+    floor = {"launch_floor_ms": floor_ms,
+             "launch_floor_grid": f"sample_gather_t's at C={C} "
+                                  f"H={PRESEL_PTS}: {-(-C * PRESEL_PTS // 256)}"
+                                  f" blocks of 256 threads"}
     for name, s in specs.items():
         # launches per chunk as counted in the main path's run
         per_chunk, rest = divmod(launches5[name], n_chunks)
@@ -1603,6 +1651,8 @@ def main() -> None:
         }
         if routes:
             row["bound_routes"] = routes
+        if name in ("sample_gather_t", "permute_cols"):
+            row.update(floor)
         if "valid_points" in s:
             # the correspondences the operation bound counts
             row["valid_points"] = s["valid_points"]
@@ -1628,7 +1678,9 @@ def main() -> None:
                         n_bytes, n_ops)
         kernels.append(row)
         log(f"  {name:22s} {ms:8.4f} ms  plain {plain_ms:9.3f} ms  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{b_ms:.4f} ms ({b_by})"
+            + (f"  launch floor {floor_ms:.4f} ms" if "launch_floor_ms" in row
+               else ""))
 
     idx0 = chunk_idx(0)
     P, SK = PRESEL_PTS, PRESEL_MODELS

@@ -12,15 +12,19 @@ instructions `cuobjdump -sass` shows: FFMA / FMUL / FADD for the f32
 kernels (K6 is built with FMA contraction, K7 - K9 without), MUFU and FCHK
 for a division (FCHK tests for its slow path), FSETP for f32 comparisons,
 VOTE for the ballots that compact the valid points of K7 - K9, IGMMA for
-the int8 tensor-core product of K1, POPC / VIMNMX for the Hamming kernels,
-LDG / STG / LDS / STS for the loads and stores of the gathers (K4's two
-instantiations as `sample_gather_perm_kernel<true>` (staged) / `<false>`).
+the int8 tensor-core products of K1 and K2, POPC / IMNMX / VIMNMX for the
+Hamming kernels, LDG / STG / LDS / STS for the loads and stores of the
+gathers (K4's two instantiations as `sample_gather_perm_kernel<true>`
+(staged) / `<false>`), and the dynamic shared memory of the DB-wide top-2
+kernel K2 at 704 queries (`kmt_hamming_top2_smem`, a host function of its
+library).
 Prints one JSON object {"kernel_report": ...} as its last line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -120,6 +124,10 @@ def main() -> None:
                 "flags": _build.SOURCE_FLAGS[src],
                 "kernels": {short(k): {**info.get(k, {}), **v}
                             for k, v in sass.items()}}
+        smem = ctypes.CDLL(paths["hamming.cu"]).kmt_hamming_top2_smem
+        smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+        report["hamming.cu"]["kernels"]["hamming_top2_kernel"][
+            "dynamic_smem_bytes_at_704_queries"] = smem(704)
     for src, entry in report.items():
         for name, k in entry["kernels"].items():
             print(f"{src:11s} {name:28s} {json.dumps(k)}", flush=True)

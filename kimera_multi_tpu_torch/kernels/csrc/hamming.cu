@@ -410,136 +410,356 @@ extern "C" int kmt_pair_top2(const void* desc_q, const void* desc_t,
 // the least. The TPU kernel took |a|+|b|-2ab on the matrix unit tile by tile
 // and carried a running top-2 across the sequential target grid axis.
 //
-// Here a row is packed to 8 words of 32 bits while it is staged in shared
-// memory (a warp reads the row's 512 bytes, 16 per lane, and eight
-// __ballot_sync calls turn the lanes' "!= 0" tests into the 8 words; the bit
-// order inside a word is the same for queries and targets, and a distance
-// does not depend on it), and a distance is 8 XOR + POPC + ADD.
+// Here, as in K1, the distances come from an int8 product on the tensor
+// cores (`wgmma` m64n176k32, s8 x s8 -> s32), with the queries as A and the
+// database streamed through B. A query is stored as 2q - 1 (bytes 1 or -1)
+// and a target as -t (bytes 0 or -1), so A'.B = |t| - 2 q.t and d = |q| +
+// A'.B: the product needs no bit count of the targets, and |q| is added
+// once at the end.
 //
-// Bound on an H100: the database is read once (Kt * 512 bytes: 2.2 GB at
-// Kt = 4.3 M, 0.66 ms at 3.35 TB/s); on this route the work is Kq * Kt * 8
-// POPC, at 16 per clock and SM (CUDA C++ Programming Guide, compute
-// capability 9.0) 5.8 ms for Kq = 704 at that Kt. The integer tensor cores
-// could do the same product as an int8 matrix product in 0.8 ms; that is a
-// later redesign. What this design does about its own bound: each thread
-// keeps 4 queries' 8 words in registers (512 queries per block), so one
-// staged and packed target row serves 512 queries; every thread of a warp
-// reads the same target words (a shared-memory broadcast).
+// Bound on an H100: operations. At Kq = 704, Kt = 4.3 M the product is
+// 1.56e15 int8 operations (0.79 ms at 1,979e12/s), the database 2.2 GB of
+// bf16 read once (0.66 ms at 3.35 TB/s), the top-2 over the product 3.05e9
+// elements at 2.5 integer instructions each (0.46 ms). The three have to
+// overlap. What the design does about it:
+//  * A block holds up to 704 queries, 11 tiles of 64 rows in the no-swizzle
+//    K-major layout of `wgmma` (176 KB), staged once, and walks one
+//    contiguous split of the database in chunks of 176 rows through a
+//    single 45 KB B stage; one block on each SM, so the database is read
+//    from device memory once. A chunk's rows come in as bf16 (16 bytes, 8
+//    values, a load) and are narrowed by the threads to bytes 0 / -1 with
+//    the rule of the plain version, (h & 0x7fff) != 0 (5 instructions for
+//    4 values); TMA cannot convert. A warp loads one 32-byte k-step of 8
+//    rows at a time, so its 8-byte stores fill 256 contiguous bytes of the
+//    stage (no bank conflict).
+//  * Loads run ahead: the next chunk's rows are loaded into registers in
+//    two halves while the current chunk's products run, each narrowed (16
+//    bytes -> 8) four products later, between a product's issue and its
+//    wait, so that a late load stalls a warp that waits anyway, and written
+//    to the stage once every product of the current chunk is done.
+//  * Two warpgroups take the tiles in turn (even tiles, odd tiles), each
+//    with one accumulator set: a warpgroup issues its product only after
+//    the other has issued its own (a pair of named barriers), so the tensor
+//    cores run one warpgroup's product while the other takes its top-2.
+//    With an odd tile count (11 at 704 queries) the last tile is shared:
+//    the two take it in turn, chunk by chunk, so the turns alternate across
+//    chunks too, and its fold waits until the next chunk is staged, while
+//    the other warpgroup's first product of that chunk runs.
+//  * Top-2 by unique keys, as in K1: within a chunk a 16-bit key per
+//    element, (A'.B + 256) * 64 + the column's place among the thread's 44,
+//    two rows folded at once with 16x2 min/max (2 IMAD and 3 VIMNMX for two
+//    elements); the chunk's two least per row become 32-bit keys, (A'.B +
+//    256) << 22 | the column within the split, kept in registers across the
+//    whole split. Columns past the split's end carry the value 1023 (no
+//    target). `min` over unique keys does not depend on order: the least
+//    key is the least distance at its first index, the second-least the
+//    second-least distance counting ties.
 //
-// The grid's x axis is the query blocks, its y axis contiguous splits of the
-// target axis, so the card fills even for a few hundred queries. Each split
-// writes a partial (d1, d2, i1); a second kernel merges the splits in split
-// order. Within a split targets are scanned in ascending order with a strict
-// `<`, and the merge replaces i1 only on a strict `<` too, so i1 is the first
-// index of the least distance; d2 keeps multiplicity (d2 == d1 when the least
-// occurs twice), as the JAX merge min(max(od1, nd1), min(od2, nd2)) gives.
+// The grid's x axis is the query groups of 704, its y axis contiguous
+// splits of the target axis, each at most 2^22 rows (the keys' column
+// bits). Each split writes a partial (d1, d2, i1); a second kernel merges
+// the splits in split order, replacing i1 only on a strict `<`, so i1 is
+// the first index of the least distance and d2 keeps multiplicity (d2 ==
+// d1 when the least occurs twice), as the JAX merge min(max(od1, nd1),
+// min(od2, nd2)) gives.
 
 namespace {
 
-constexpr int kT2Threads = 128;
-constexpr int kT2Qpt = 4;                          // queries per thread
-constexpr int kT2Queries = kT2Threads * kT2Qpt;    // queries per block
-constexpr int kT2Tile = 256;                       // target rows per pass
-constexpr int kT2None = 0x3fffffff;                // no target seen
+constexpr int kT2Threads = 256;                  // two warpgroups
+constexpr int kT2N = kP2N;                       // targets per chunk
+constexpr int kT2Tiles = 11;                     // query tiles of a block
+constexpr int kT2Queries = kT2Tiles * kP2Rows;   // 704
+constexpr int kT2Own = kT2Tiles / 2;            // tiles of a warpgroup
+constexpr int kT2TileBytes = kP2Rows * 256;
+constexpr int kT2StageBytes = kT2N * 256;
+constexpr int kT2Half = kT2N * 32 / kT2Threads / 2;  // uint4 loads a half
+constexpr int kT2ColBits = 22;
+constexpr uint32_t kT2KeyNone = 0xffffffffu;
+constexpr int kT2None = 0x3fffffff;              // no target seen
+// 16-bit chunk keys: value field of a live column (A'.B + 256 at A'.B = 0
+// is 256, i.e. 16384 after the shift) and of a column past the end (1023)
+constexpr uint32_t kT2Live = 256u << 6, kT2Dead = 1023u << 6;
 
-// One row of 256 bf16 bits, lane l holding elements 8l .. 8l+7 in `v`, to
-// 8 words (every lane gets all 8).
-__device__ __forceinline__ void pack_row(const uint4 v, uint32_t w[8]) {
-  const uint32_t h[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w[2 * j] = __ballot_sync(0xffffffffu, (h[j] & 0x7fffu) != 0);
-    w[2 * j + 1] = __ballot_sync(0xffffffffu, (h[j] & 0x7fff0000u) != 0);
-  }
+static_assert(kT2N * 32 == 2 * kT2Half * kT2Threads, "chunk loads");
+static_assert(kT2N % 8 == 0 && 2 * kT2Half * 8 == kT2N, "row groups");
+static_assert(kT2Own > 4, "the slots that narrow a chunk");
+
+// query tiles a block stages for Kq queries (all kT2Tiles once a launch
+// has more than one block of queries)
+__host__ __device__ constexpr int t2_tiles(int Kq) {
+  return Kq >= kT2Queries ? kT2Tiles : (Kq + kP2Rows - 1) / kP2Rows;
 }
 
-// Stage rows [0, n) of `src` (rows of 32 uint4) packed into dst[2 r], dst[2
-// r + 1]; warp w takes rows 4 at a time, all four loads issued first.
-__device__ __forceinline__ void stage_rows(const uint4* __restrict__ src,
-                                           int n, uint4* dst) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int kWarps = kT2Threads / 32;
-  for (int r0 = warp * 4; r0 < n; r0 += kWarps * 4) {
-    uint4 v[4];
+__host__ __device__ constexpr int t2_smem_bytes(int tiles) {
+  return tiles * kT2TileBytes + kT2StageBytes + tiles * kP2Rows * 4;
+}
+
+// byte i = -1 where (value i & 0x7fff) != 0, else 0, for the 4 bf16 values
+// of w0 (0, 1) and w1 (2, 3): (h | 0x8000) - 1 has bit 15 set iff h &
+// 0x7fff != 0, with no borrow out of a 16-bit half, and `prmt` spreads that
+// bit of each half over its byte (a selector nibble with its msb set
+// replicates the sign of the byte it picks)
+__device__ __forceinline__ uint32_t neg_nonzero4(uint32_t w0, uint32_t w1) {
+  const uint32_t s0 = (w0 | 0x80008000u) - 0x00010001u;
+  const uint32_t s1 = (w1 | 0x80008000u) - 0x00010001u;
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, 0xfdb9;" : "=r"(r) : "r"(s0), "r"(s1));
+  return r;
+}
+
+__device__ __forceinline__ uint2 neg_nonzero8(const uint4 v) {
+  return make_uint2(neg_nonzero4(v.x, v.y), neg_nonzero4(v.z, v.w));
+}
+
+__device__ __forceinline__ void top2_merge_u(uint32_t& m1, uint32_t& m2,
+                                             uint32_t o1, uint32_t o2) {
+  m2 = min(min(m2, o2), max(m1, o1));
+  m1 = min(m1, o1);
+}
+
+// a 16-bit chunk key -> the 32-bit key of its column within the split
+// (col0: the split column of the thread's first in the chunk)
+__device__ __forceinline__ uint32_t t2_key32(uint32_t k, int col0) {
+  const uint32_t v = k >> 6;
+  return v == 1023u ? kT2KeyNone
+                    : (v << kT2ColBits) + (uint32_t)col0 +
+                          8u * ((k & 63u) >> 1) + (k & 1u);
+}
+
+// fold one chunk's products into the running keys of this thread's two
+// rows (m[0] < m[1]: row warp*16 + lane/4; m[2] < m[3]: 8 rows below).
+// d[4j + v] is A'.B of column 8j + 2 (lane % 4) + v, row a for v < 2 (row
+// b 2 further). Both rows' 16-bit keys in one word: (A'.B_a + 65536
+// A'.B_b) * 64 + base, each half in [0, 2^16) for |A'.B| <= 256. kRagged:
+// columns at or past nt are past the split's end (zero rows, A'.B = 0)
+// and get the value 1023.
+template <bool kRagged>
+__device__ __forceinline__ void t2_fold(const int d[88], int col0, int nt,
+                                        int lane, uint32_t m[4]) {
+  uint32_t p1 = 0xffffffffu, p2 = 0xffffffffu;
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = r0 + u < n ? src[(size_t)(r0 + u) * 32 + lane]
-                        : make_uint4(0, 0, 0, 0);
+  for (int j = 0; j < kT2N / 8; ++j) {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      uint32_t w[8];
-      pack_row(v[u], w);
-      if (r0 + u < n && lane < 2)
-        dst[2 * (r0 + u) + lane] =
-            lane == 0 ? make_uint4(w[0], w[1], w[2], w[3])
-                      : make_uint4(w[4], w[5], w[6], w[7]);
+    for (int v = 0; v < 2; ++v) {
+      uint32_t base = (kT2Live + 2 * j + v) * 0x10001u;
+      if (kRagged && 8 * j + 2 * (lane & 3) + v >= nt)
+        base += (kT2Dead - kT2Live) * 0x10001u;
+      const uint32_t key =
+          ((uint32_t)d[4 * j + 2 + v] * 65536u + (uint32_t)d[4 * j + v]) *
+              64u + base;
+      p2 = min_u16x2(p2, max_u16x2(p1, key));
+      p1 = min_u16x2(p1, key);
     }
   }
+  top2_merge_u(m[0], m[1], t2_key32(p1 & 0xffffu, col0),
+               t2_key32(p2 & 0xffffu, col0));
+  top2_merge_u(m[2], m[3], t2_key32(p1 >> 16, col0),
+               t2_key32(p2 >> 16, col0));
 }
 
-__global__ void __launch_bounds__(kT2Threads)
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kT2Threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kT2Threads)
+               : "memory");
+}
+
+__device__ __forceinline__ int t2_decode(uint32_t key, int pq) {
+  return key == kT2KeyNone ? kT2None : (int)(key >> kT2ColBits) - 256 + pq;
+}
+
+__global__ void __launch_bounds__(kT2Threads, 1)
 hamming_top2_kernel(const uint4* __restrict__ bq,   // (Kq, 32) uint4
                     const uint4* __restrict__ bt,   // (Kt, 32) uint4
                     int* __restrict__ part,         // (3, S, Kq)
-                    int Kq, int Kt, int rows_per_split) {
-  __shared__ uint4 s_q[kT2Queries * 2];
-  __shared__ uint4 s_t[kT2Tile * 2];
+                    int Kq, int Kt, int rows_per_split, int tiles_alloc) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sA = smem;
+  unsigned char* sB = smem + tiles_alloc * kT2TileBytes;
+  int* s_pop = reinterpret_cast<int*>(sB + kT2StageBytes);
 
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int group = tid >> 7, gwarp = warp & 3;
   const int q0 = blockIdx.x * kT2Queries;
+  const int nq = min(kT2Queries, Kq - q0);
+  const int n_tiles = (nq + kP2Rows - 1) / kP2Rows;
   const int split = blockIdx.y, S = gridDim.y;
   const int lo = split * rows_per_split;
   const int hi = min(Kt, lo + rows_per_split);
+  const int n_chunks = (hi - lo + kT2N - 1) / kT2N;
 
-  stage_rows(bq + (size_t)q0 * 32, min(kT2Queries, Kq - q0), s_q);
-  __syncthreads();
-  uint4 qa[kT2Qpt], qb[kT2Qpt];
-  int d1[kT2Qpt], d2[kT2Qpt], i1[kT2Qpt];
-  bool act[kT2Qpt];  // warp-uniform: the warp holds a real query
-#pragma unroll
-  for (int j = 0; j < kT2Qpt; ++j) {
-    const int r = j * kT2Threads + threadIdx.x;
-    qa[j] = s_q[2 * r];
-    qb[j] = s_q[2 * r + 1];
-    d1[j] = kT2None;
-    d2[j] = kT2None;
-    i1[j] = -1;
-    act[j] = q0 + j * kT2Threads + warp * 32 < Kq;
+  // the queries as 2q - 1 bytes in the A layout (rows past nq zero) and |q|;
+  // warp w takes rows w, w + 8, ..., lane l bytes 8l .. 8l + 7 of a row
+  for (int r = warp; r < n_tiles * kP2Rows; r += kT2Threads / 32) {
+    const bool live = r < nq;
+    const uint2 f = neg_nonzero8(live ? bq[(size_t)(q0 + r) * 32 + lane]
+                                      : make_uint4(0, 0, 0, 0));
+    const uint2 a = live ? make_uint2(~f.x | 0x01010101u,
+                                      ~f.y | 0x01010101u)
+                         : make_uint2(0, 0);
+    *reinterpret_cast<uint2*>(sA + (r >> 6) * kT2TileBytes +
+                              ((r & 63) >> 3) * kCoreMN +
+                              (lane >> 1) * kCoreK + (r & 7) * 16 +
+                              (lane & 1) * 8) = a;
+    const int pop = __reduce_add_sync(
+        0xffffffffu, __popc(f.x & 0x01010101u) + __popc(f.y & 0x01010101u));
+    if (lane == 0) s_pop[r] = pop;
   }
 
-  for (int t0 = lo; t0 < hi; t0 += kT2Tile) {
-    const int nt = min(kT2Tile, hi - t0);
-    __syncthreads();
-    stage_rows(bt + (size_t)t0 * 32, nt, s_t);
-    __syncthreads();
-    for (int t = 0; t < nt; ++t) {
-      const uint4 a = s_t[2 * t], b = s_t[2 * t + 1];
+  // chunk loads: in row group g (8 rows) this thread takes row g*8 +
+  // lane%8, bytes 16 (4 warp + lane/8) .. +15 of its 512 (k-step `warp`)
+  const uint4* src = bt + (size_t)(lo + (lane & 7)) * 32 + 4 * warp +
+                     (lane >> 3);
+  const int row_lim = hi - lo - (lane & 7);
+  unsigned char* dst = sB + (2 * warp + (lane >> 4)) * kCoreK +
+                       (lane & 7) * 16 + ((lane >> 3) & 1) * 8;
+  uint4 raw[kT2Half];
+  uint2 cva[kT2Half], cvb[kT2Half];
+  // half h of chunk c into raw (zero past the split's end, not loaded)
+  auto load_half = [&](int c, int h) {
 #pragma unroll
-      for (int j = 0; j < kT2Qpt; ++j) {
-        if (!act[j]) continue;
-        const int d = __popc(qa[j].x ^ a.x) + __popc(qa[j].y ^ a.y) +
-                      __popc(qa[j].z ^ a.z) + __popc(qa[j].w ^ a.w) +
-                      __popc(qb[j].x ^ b.x) + __popc(qb[j].y ^ b.y) +
-                      __popc(qb[j].z ^ b.z) + __popc(qb[j].w ^ b.w);
-        if (d < d1[j]) {
-          d2[j] = d1[j];
-          d1[j] = d;
-          i1[j] = t0 + t;
-        } else if (d < d2[j]) {
-          d2[j] = d;
-        }
+    for (int u = 0; u < kT2Half; ++u) {
+      const int r = c * kT2N + (h * kT2Half + u) * 8;
+      raw[u] = r < row_lim ? __ldcs(src + (size_t)r * 32)
+                           : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto narrow = [&](uint2* cv) {
+#pragma unroll
+    for (int u = 0; u < kT2Half; ++u) cv[u] = neg_nonzero8(raw[u]);
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int u = 0; u < kT2Half; ++u) {
+      *reinterpret_cast<uint2*>(dst + u * kCoreMN) = cva[u];
+      *reinterpret_cast<uint2*>(dst + (kT2Half + u) * kCoreMN) = cvb[u];
+    }
+  };
+
+  load_half(0, 0);
+  narrow(cva);
+  load_half(0, 1);
+  narrow(cvb);
+  store();
+  fence_async_proxy();
+  __syncthreads();
+
+  // running keys: m[i] of own tile group + 2i, m[kT2Own] of the shared tile
+  uint32_t m[kT2Own + 1][4];
+#pragma unroll
+  for (int i = 0; i <= kT2Own; ++i)
+    m[i][0] = m[i][1] = m[i][2] = m[i][3] = kT2KeyNone;
+  const uint32_t a_addr = smem_addr(sA), b_addr = smem_addr(sB);
+  // tiles t < n_own belong to warpgroup t % 2; with an odd count the last
+  // is shared: the warpgroup that issues a chunk's first product issues its
+  // last, on the shared tile, and the two take turns chunk by chunk
+  const int n_own = n_tiles & ~1;
+  const bool odd = n_tiles & 1;
+  int d[88];
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int nt = min(kT2N, hi - lo - c * kT2N);
+    const int col0 = c * kT2N + 2 * (lane & 3);
+    const bool first = group == (odd ? (c & 1) : 0);
+    auto fold = [&](uint32_t* mi) {
+      if (nt == kT2N)
+        t2_fold<false>(d, col0, nt, lane, mi);
+      else
+        t2_fold<true>(d, col0, nt, lane, mi);
+    };
+    // work of slot i that does not touch the product, done while this
+    // warpgroup's product runs (or in its place where the slot has no
+    // tile): the next chunk's first half loaded at slot 0, narrowed at
+    // slot 2, where the second half is loaded, narrowed at slot 4; four
+    // products run between a load and its use
+    auto side = [&](int i) {
+      if (i == 0) {
+        load_half(c + 1, 0);
+      } else if (i == 2) {
+        narrow(cva);
+        load_half(c + 1, 1);
+      } else if (i == 4) {
+        narrow(cvb);
+      }
+    };
+    // products go to the tensor cores in turn, position p = 0, 1, ... of
+    // the chunk: wait until the other warpgroup has issued p - 1, let it
+    // issue p + 1 after this
+#pragma unroll
+    for (int i = 0; i < kT2Own; ++i) {
+      const int t = group + 2 * i;
+      if (t < n_own) {
+        const int p = 2 * i + (first ? 0 : 1);
+        if (p > 0) named_bar_sync(1 + group);
+        issue_chunk(d, a_addr + t * kT2TileBytes, b_addr);
+        if (p + 1 < n_tiles) named_bar_arrive(2 - group);
+        side(i);
+        wait_chunk<0>(d);
+        fold(m[i]);
+      } else {
+        side(i);
       }
     }
+    // the shared tile, last; its fold waits until the next chunk is
+    // staged, so that the other warpgroup's first product runs meanwhile
+    const bool shared = odd && first;
+    if (shared) {
+      if (n_tiles > 1) named_bar_sync(1 + group);
+      issue_chunk(d, a_addr + n_own * kT2TileBytes, b_addr);
+      wait_chunk<0>(d);
+    }
+    __syncthreads();  // every product of chunk c is done
+    if (c + 1 < n_chunks) {
+      store();
+      fence_async_proxy();
+    }
+    __syncthreads();
+    if (shared) fold(m[kT2Own]);
   }
-#pragma unroll
-  for (int j = 0; j < kT2Qpt; ++j) {
-    const int q = q0 + j * kT2Threads + threadIdx.x;
-    if (q < Kq) {
-      part[((size_t)0 * S + split) * Kq + q] = d1[j];
-      part[((size_t)1 * S + split) * Kq + q] = d2[j];
-      part[((size_t)2 * S + split) * Kq + q] = i1[j];
+
+  // the shared tile's keys of warpgroup 1 merged into warpgroup 0's (the
+  // same rows in the same lanes), through the stage
+  if (odd) {
+    uint4* s_keys = reinterpret_cast<uint4*>(sB);
+    if (group == 1)
+      s_keys[tid - 128] = make_uint4(m[kT2Own][0], m[kT2Own][1],
+                                     m[kT2Own][2], m[kT2Own][3]);
+    __syncthreads();
+    if (group == 0) {
+      const uint4 o = s_keys[tid];
+      top2_merge_u(m[kT2Own][0], m[kT2Own][1], o.x, o.y);
+      top2_merge_u(m[kT2Own][2], m[kT2Own][3], o.z, o.w);
     }
   }
+  // merge the 4 lanes of a row; write the split's partial result
+  auto emit = [&](const uint32_t* mi, int t) {
+    uint32_t m1a = mi[0], m2a = mi[1], m1b = mi[2], m2b = mi[3];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      top2_merge_u(m1a, m2a, __shfl_xor_sync(0xffffffffu, m1a, o),
+                   __shfl_xor_sync(0xffffffffu, m2a, o));
+      top2_merge_u(m1b, m2b, __shfl_xor_sync(0xffffffffu, m1b, o),
+                   __shfl_xor_sync(0xffffffffu, m2b, o));
+    }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = t * kP2Rows + gwarp * 16 + (lane >> 2) + 8 * h;
+        if (r >= nq) continue;
+        const uint32_t m1 = h ? m1b : m1a, m2 = h ? m2b : m2a;
+        const size_t o = (size_t)split * Kq + q0 + r;
+        part[o] = t2_decode(m1, s_pop[r]);
+        part[(size_t)S * Kq + o] = t2_decode(m2, s_pop[r]);
+        part[(size_t)2 * S * Kq + o] =
+            m1 == kT2KeyNone ? -1 : lo + (int)(m1 & ((1u << kT2ColBits) - 1));
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kT2Own; ++i)
+    if (group + 2 * i < n_own) emit(m[i], group + 2 * i);
+  if (odd && group == 0) emit(m[kT2Own], n_own);
 }
 
 __global__ void hamming_top2_merge_kernel(const int* __restrict__ part,
@@ -566,21 +786,35 @@ __global__ void hamming_top2_merge_kernel(const int* __restrict__ part,
 
 }  // namespace
 
+// Dynamic shared memory of the DB-wide kernel for Kq queries (host only).
+extern "C" int kmt_hamming_top2_smem(int Kq) {
+  return t2_smem_bytes(t2_tiles(Kq));
+}
+
 // bits_q (Kq, 256) bf16, bits_t (Kt, 256) bf16 (16-byte aligned), part
 // (3, S, Kq) i32 scratch -> d1, d2 (Kq,) f32, i1 (Kq,) i32. Targets
-// [s * rows_per_split, (s + 1) * rows_per_split) form split s < S.
+// [s * rows_per_split, (s + 1) * rows_per_split) form split s < S; every
+// split holds a target and at most 2^22 (the keys' column bits).
 extern "C" int kmt_hamming_top2(const void* bits_q, const void* bits_t,
                                 void* part, void* d1, void* d2, void* i1,
                                 int Kq, int Kt, int rows_per_split, int S,
                                 void* stream) {
-  if (Kq <= 0 || Kt <= 0 || S <= 0 || S > 65535 || rows_per_split <= 0)
+  if (Kq <= 0 || Kt <= 0 || S <= 0 || S > 65535 || rows_per_split <= 0 ||
+      rows_per_split > (1 << kT2ColBits) ||
+      (long long)(S - 1) * rows_per_split >= Kt ||
+      (long long)S * rows_per_split < Kt)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int tiles = t2_tiles(Kq);
+  const int smem = t2_smem_bytes(tiles);
+  cudaError_t err = cudaFuncSetAttribute(
+      hamming_top2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid((Kq + kT2Queries - 1) / kT2Queries, S);
-  hamming_top2_kernel<<<grid, kT2Threads, 0, st>>>(
+  hamming_top2_kernel<<<grid, kT2Threads, smem, st>>>(
       (const uint4*)bits_q, (const uint4*)bits_t, (int*)part, Kq, Kt,
-      rows_per_split);
-  cudaError_t err = cudaGetLastError();
+      rows_per_split, tiles);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hamming_top2_merge_kernel<<<(Kq + 127) / 128, 128, 0, st>>>(
       (const int*)part, (float*)d1, (float*)d2, (int*)i1, Kq, S);

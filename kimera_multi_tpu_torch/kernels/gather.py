@@ -42,13 +42,21 @@ def sample_gather_t(data: torch.Tensor, picks: torch.Tensor) -> torch.Tensor:
     H, k = picks.shape[1:]
     _build.check_cuda("data", data, torch.float32, (C, D, K))
     _build.check_cuda("picks", picks, torch.int32, (C, H, k))
-    if C > 65535 or k > 65535:
-        raise ValueError("sample_gather_t: C and k at most 65535")
+    if C * H >= 1 << 31:
+        raise ValueError("sample_gather_t: C * H must be below 2^31")
     out = torch.empty((C, k * D, H), dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
         _build.launch("sample_gather_t", data.data_ptr(), picks.data_ptr(),
                       out.data_ptr(), C, D, K, H, k)
     return out
+
+
+def empty_launch(C: int, H: int, device) -> None:
+    """Launch a kernel that does nothing, with `sample_gather_t`'s grid and
+    block for C candidates of H hypotheses: its device time is the floor of
+    a launch of that shape. A measurement only; no path calls it."""
+    with torch.cuda.device(device):
+        _build.launch("empty", C, H)
 
 
 def sample_gather_perm_t_ref(data, picks, order):

@@ -8,10 +8,9 @@ second-nearest target, accepted when d1 < ratio * d2.
 Two paths with identical results. The plain PyTorch version unpacks the
 descriptors to {0,1} bit matrices and takes the Hamming distance matrix as
 ham(a, b) = |a| + |b| - 2 a.b, exact in float32. The CUDA kernels
-(csrc/hamming.cu) never form the distance matrix in memory: the pair
-kernel takes the same product on the int8 tensor cores and keeps a top-2
-of unique integer keys in registers, the DB-wide kernel works on packed
-words with XOR + POPC. `knn2_lowe_match_pairs` (per candidate pair) and
+(csrc/hamming.cu) never form the distance matrix in memory: both take
+the same product on the int8 tensor cores and keep a top-2 of unique
+integer keys in registers. `knn2_lowe_match_pairs` (per candidate pair) and
 `hamming_top2_pallas` (one query set against a whole database) launch
 their kernels for CUDA tensors and take the plain versions for CPU tensors
 only.
@@ -140,8 +139,9 @@ def knn2_lowe_match_pairs(desc_q, valid_q, desc_t, valid_t,
 # ---------------------------------------------------------------------------
 
 _TOP2_NONE = 1e9  # d1 / d2 of a query that saw fewer than 1 / 2 targets
-_TOP2_TILE = 256  # target rows the CUDA kernel stages per pass
-_TOP2_QUERIES = 512  # queries per block of the CUDA kernel
+_TOP2_TILE = 176  # target rows of one chunk of the CUDA kernel
+_TOP2_QUERIES = 704  # queries per block of the CUDA kernel
+_TOP2_MAX_SPLIT = 1 << 22  # target rows of a split the kernel's keys hold
 
 
 def _top2_merge(a, b):
@@ -187,29 +187,42 @@ def _hamming_top2_ref(bits_q, bits_t, chunk: int = 65536):
 def top2_split_rows(Kq: int, Kt: int, n_splits: int | None = None,
                     device=None) -> int:
     """Target rows per split of the CUDA kernel: the target axis is cut
-    into contiguous splits of whole staging tiles, enough of them (with the
-    query blocks) to give every SM of the card several blocks, unless
-    `n_splits` says how many."""
-    n_tiles = -(-Kt // _TOP2_TILE)
+    into contiguous splits of whole chunks, one block for each SM of the
+    card over the query groups, unless `n_splits` says how many. A split
+    holds at most 2^22 rows, the column bits of the kernel's keys: more
+    splits are taken where the card's count would give larger ones, and a
+    caller's `n_splits` that would raises ValueError."""
+    n_chunks = -(-Kt // _TOP2_TILE)
+    max_chunks = _TOP2_MAX_SPLIT // _TOP2_TILE
     if n_splits is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        q_blocks = -(-Kq // _TOP2_QUERIES)
-        n_splits = max(1, (8 * sms) // q_blocks)
-    n_splits = max(1, min(n_splits, n_tiles, 65535))
-    return -(-n_tiles // n_splits) * _TOP2_TILE
+        q_groups = -(-Kq // _TOP2_QUERIES)
+        n_splits = max(1, sms // q_groups, -(-n_chunks // max_chunks))
+    n_splits = max(1, min(n_splits, n_chunks, 65535))
+    rows = -(-n_chunks // n_splits) * _TOP2_TILE
+    if rows > _TOP2_MAX_SPLIT:
+        raise ValueError(
+            f"hamming_top2: {n_splits} splits of {Kt} targets give {rows} "
+            f"rows a split, more than the {_TOP2_MAX_SPLIT} the kernel's "
+            f"keys hold")
+    return rows
 
 
 def _hamming_top2(bits_q, bits_t, n_splits: int | None = None):
     """The CUDA DB-wide top-2 kernel (csrc/hamming.cu), tensors on the
-    card: each block scans one split of the targets for up to 512 queries,
-    a second kernel merges the splits' partial results in split order."""
+    card: each block holds up to 704 queries and scans one split of the
+    targets on the int8 tensor cores, a second kernel merges the splits'
+    partial results in split order."""
     Kq, Kt = bits_q.shape[0], bits_t.shape[0]
+    # a caller's splits are checked first: the guard needs no card
+    rows = None if n_splits is None else top2_split_rows(Kq, Kt, n_splits)
     _build.check_cuda("bits_q", bits_q, torch.bfloat16, (Kq, 256))
     _build.check_cuda("bits_t", bits_t, torch.bfloat16, (Kt, 256))
     if bits_q.data_ptr() % 16 or bits_t.data_ptr() % 16:
         raise ValueError("hamming_top2: bit rows must be 16-byte aligned")
     dev = bits_q.device
-    rows = top2_split_rows(Kq, Kt, n_splits, dev)
+    if rows is None:
+        rows = top2_split_rows(Kq, Kt, None, dev)
     S = -(-Kt // rows)
     part = torch.empty((3, S, Kq), dtype=torch.int32, device=dev)
     d1 = torch.empty((Kq,), dtype=torch.float32, device=dev)

@@ -125,13 +125,20 @@ def test_counts(dev, K, H):
         score.rigid_counts(R.transpose(-1, -2), t, p, q, valid, 6.0)
 
 
-@pytest.mark.parametrize("k,K,H", [(5, 75, 500), (1, 704, 64)])
-def test_sample_gather_t(dev, k, K, H):
+@pytest.mark.parametrize("k,K,H,C,D", [
+    (5, 75, 500, 4, 3), (1, 704, 64, 4, 3), (1, 704, 64, 1024, 3)] + [
+    (k, 2500, H, 5, 3) for H in (1, 33, 100, 513) for k in (1, 3, 8, 9)] + [
+    (1, 2500, 64, 5, 1), (1, 2500, 100, 5, 6), (3, 2500, 33, 5, 6),
+    (9, 2500, 33, 5, 1)])
+def test_sample_gather_t(dev, k, K, H, C, D):
+    """K3 at the verification path's shape (k = 1, H = 64, K = 704, C =
+    1024, D = 3), H off the block's 256 pairs and not a divisor of it, k
+    over one pass of 8 sample points (9: two), D of 1 and 6 (k = 1 there
+    takes the staged kernel), picks -2 and K + 9 (clamped)."""
     rs = np.random.default_rng(3)
-    C = 4
-    data = torch.from_numpy(rs.normal(size=(C, 3, K)).astype(np.float32))
+    data = torch.from_numpy(rs.normal(size=(C, D, K)).astype(np.float32))
     picks = torch.from_numpy(rs.integers(0, K, (C, H, k)).astype(np.int32))
-    picks[0, 0, 0], picks[1, 3, k - 1] = -2, K + 9  # clamped
+    picks[0, 0, 0], picks[1, min(3, H - 1), k - 1] = -2, K + 9  # clamped
     data, picks = data.to(dev), picks.to(dev)
     n0 = _build.launches["sample_gather_t"]
     got = gather.sample_gather_t(data, picks)
@@ -478,32 +485,46 @@ def test_essential_counts_outside_rule(dev, thr):
     assert torch.equal(got, score.essential_counts_ref(*args, thr))
 
 
-def _top2_case(rs, Kq, Kt):
-    t = rs.integers(0, 256, (Kt, 32), dtype=np.uint8)
-    t[1::2] = t[0::2]  # duplicated rows: ties, first index wins
-    q = t[rs.integers(0, Kt, Kq)].copy()
-    q[:, 7] ^= rs.integers(0, 256, Kq, dtype=np.uint8)
-    return q, t
-
-
 def _bits(x, dev):
     from kimera_multi_tpu_torch.kernels.hamming import unpack_bits
 
     return unpack_bits(torch.from_numpy(x)).to(torch.bfloat16).to(dev)
 
 
-@pytest.mark.parametrize("Kq,Kt,n_splits", [(64, 512, None), (704, 1000, 3),
-                                            (520, 4096, 16), (64, 512, 2)])
-def test_hamming_top2(dev, Kq, Kt, n_splits):
-    """K2: Kq over one block of 512 queries, Kt not a multiple of the
-    staging tile, ties everywhere, and a tie that lands exactly on a split
-    boundary (the earlier split's index must win)."""
+@pytest.mark.parametrize("Kq", [1, 63, 200, 704, 705, 1500])
+@pytest.mark.parametrize("Kt,n_splits,case", [
+    (1, None, "dup"), (2, None, "dup"), (175, None, "dup"),
+    (176, None, "dup"), (177, None, "dup"), (351, 2, "dup"),
+    (352, 2, "dup"), (353, 2, "dup"), (1000, 3, "dup"), (4096, 16, "dup"),
+    (4096, 2, "dup"), (531, None, "equal")])
+def test_hamming_top2(dev, Kq, Kt, n_splits, case):
+    """K2 equal to its plain version: Kq one tile, one row short of a tile,
+    ragged, a whole block of 704 queries, and past it (705: a second block
+    of one row; 1500: a third, ragged block of two tiles); Kt of one and
+    two rows (d2 = 1e9 for one), at and around the 176-row chunk and a
+    split's size; duplicated rows (ties everywhere), an exact copy of the
+    first query on both sides of a chunk boundary and of the last query
+    (in the last block) on both sides of a split boundary (the earlier
+    index wins, d2 == d1), and a database of one row repeated."""
     rs = np.random.default_rng(Kq + Kt)
-    q, t = _top2_case(rs, Kq, Kt)
+    t = rs.integers(0, 256, (Kt, 32), dtype=np.uint8)
+    if case == "equal":
+        t[:] = t[0]
+    else:
+        t[1::2] = t[0:Kt - 1:2]
+    q = t[rs.integers(0, Kt, Kq)].copy()
+    q[:, 7] ^= rs.integers(1, 256, Kq, dtype=np.uint8)  # no exact copy
     rows = hamming.top2_split_rows(Kq, Kt, n_splits, dev)
-    if rows < Kt:  # query 0 meets its copy at both sides of a boundary
-        t[rows - 1] = q[0]
-        t[rows] = q[0]
+    cuts = []  # boundaries to place a tie on: a chunk's, a split's
+    if case == "dup" and hamming._TOP2_TILE < min(rows, Kt - 1):
+        cuts.append(hamming._TOP2_TILE)
+    if case == "dup" and rows < Kt:
+        cuts.append(rows)
+    # query -> first index of its copies
+    ties = dict(zip(sorted({0, Kq - 1}), cuts))
+    for qi, cut in ties.items():
+        t[cut - 1] = t[cut] = q[qi]
+        ties[qi] = cut - 1
     bq, bt = _bits(q, dev), _bits(t, dev)
     n0 = _build.launches["hamming_top2"]
     got = hamming._hamming_top2(bq, bt, n_splits)
@@ -512,10 +533,13 @@ def test_hamming_top2(dev, Kq, Kt, n_splits):
     ref = hamming._hamming_top2_ref(bq, bt)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    if rows < Kt:
-        assert int(got[2][0]) == rows - 1 and float(got[1][0]) == 0.0
+    if Kt == 1:
+        assert bool((got[1] == hamming._TOP2_NONE).all())
+    for qi, r in ties.items():
+        assert int(got[2][qi]) == r and float(got[0][qi]) == 0.0
+        assert float(got[1][qi]) == 0.0
     # the public wrapper takes the same kernel
-    for g, r in zip(hamming.hamming_top2_pallas(bq, bt, 8, 8), ref):
+    for g, r in zip(hamming.hamming_top2_pallas(bq, bt, 1, 1), ref):
         assert torch.equal(g, r)
 
 

@@ -181,3 +181,36 @@ def test_pair_top2_refuses_more_targets_than_its_keys_hold():
     vt = torch.ones(1, 1, dtype=torch.bool).expand(1, Kt)
     with pytest.raises(ValueError, match="targets"):
         th._pair_top2(dq, dt, vt)
+
+
+@pytest.mark.parametrize("Kt", [1, 175, 177, 4_325_376, (1 << 22) + 1,
+                                3 << 22])
+def test_top2_splits_fit_the_keys(Kt):
+    """The DB-wide kernel's keys carry a target's column within its split
+    in 22 bits. A caller's n_splits gives splits of whole 176-row chunks
+    that cover the targets with none empty and never more rows than the
+    keys hold; where it would give more, it raises."""
+    for n_splits in (1, 2, 3, 7, 132, 70000):
+        n = min(n_splits, 65535)
+        try:
+            rows = th.top2_split_rows(704, Kt, n_splits)
+        except ValueError as e:
+            assert "keys hold" in str(e)
+            assert Kt > n * (th._TOP2_MAX_SPLIT - th._TOP2_TILE)
+            continue
+        S = -(-Kt // rows)
+        assert rows % th._TOP2_TILE == 0 and rows <= th._TOP2_MAX_SPLIT
+        assert (S - 1) * rows < Kt <= S * rows and S <= n
+    if Kt > th._TOP2_MAX_SPLIT:
+        with pytest.raises(ValueError, match="keys hold"):
+            th.top2_split_rows(704, Kt, 1)
+
+
+def test_hamming_top2_guard_raises_without_a_card():
+    """The CUDA wrapper refuses a caller's split larger than the keys hold
+    before it looks at the device (an expanded view: no memory)."""
+    bq = torch.zeros(4, 256, dtype=torch.bfloat16)
+    bt = torch.zeros(1, 256, dtype=torch.bfloat16).expand(
+        th._TOP2_MAX_SPLIT + 1, 256)
+    with pytest.raises(ValueError, match="keys hold"):
+        th._hamming_top2(bq, bt, n_splits=1)
