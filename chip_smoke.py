@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives three paths:
+(`check_fivept`). Then it drives five paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -28,6 +28,23 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     the detection on the card equals the detection on the CPU for
     `make_world(6, 256, 704, seed=1)`.
 
+  * the back-end: one bucketed RBCD round (`rbcd_round_reference`,
+    `RbcdConfig()`) on bench.py's graphs, `multi_robot_graph(seed=2)` with
+    6 robots x 256 poses (16 + 16 loop closures) and 6 x 2048 (64 + 64),
+    timed warm; checked: two card runs at 6 x 2048 give the same bits, the
+    card's round at 6 x 256 agrees with the CPU's (within 3 x the CPU
+    float32 round's own distance from the float64 round), 20 rounds of
+    `solve_rounds`
+    lower the lifted cost; then the GNC schedule of dist/rounds.py at
+    cli/run.py's cadence, 66 rounds at 6 x 256 on the card and on the CPU,
+    held to the loop closures the JAX package's run leaves under 0.5
+    (`GNC_UNDER_05`) and its ground-truth outliers under 0.1;
+  * `entry()`'s fused SLAM step (verification through K1, K4, K8 and K9,
+    then one RBCD round): launches counted, no plain version allowed to
+    run, each kernel call of the counted step held exactly against its
+    plain version on the tensors it was given, timed, and held against
+    the same step on the CPU.
+
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
 boundary phase).
@@ -43,11 +60,16 @@ it are JSON objects {"kernels": [...]} and {"stages": {...}}.
 
     python3 chip_smoke.py --profile
 
-also traces one verification chunk of the default configuration and a
-window of detection steps with torch.profiler and prints {"profile": ...}
-and {"profile_detect": ...} lines: device kernels launched per chunk (per
-step), the device's busy time and idle share, and the kernels that take
-most of the device time.
+also traces one verification chunk of the default configuration, a
+window of detection steps, one RBCD round at 6 x 2048 and at 6 x 256, and
+one `entry()` step with torch.profiler and prints {"profile": ...},
+{"profile_detect": ...}, {"profile_rbcd": ...}, {"profile_rbcd_6x256":
+...} and {"profile_slam_step": ...} lines: device kernels launched per
+chunk (per step, per round), the device's busy time and idle share, and
+the kernels that take most of the device time; and {"profile_rbcd_parts":
+...}: the parts of a round at 6 x 2048 (preconditioner, gradient, one CG
+step, global step, its retraction), each with its kernels by name, host
+time and the aten operations it runs.
 """
 
 from __future__ import annotations
@@ -277,10 +299,8 @@ def profile_detect_steps(detect, step_ms: float, first: int,
     return out
 
 
-def device_summary(prof, wall_ms: float) -> dict:
-    """Device kernels of a finished profile: their count, the device's busy
-    time, the idle share against `wall_ms` (the same work's time without
-    the profiler), which kernels take the time."""
+def kernels_by_name(prof) -> dict:
+    """Device kernels of a finished profile: name -> (count, device us)."""
     from torch.autograd import DeviceType
 
     by_name: dict = {}
@@ -295,6 +315,14 @@ def device_summary(prof, wall_ms: float) -> dict:
             us = getattr(e, "cuda_time", 0.0)
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + float(us))
+    return by_name
+
+
+def device_summary(prof, wall_ms: float) -> dict:
+    """Device kernels of a finished profile: their count, the device's busy
+    time, the idle share against `wall_ms` (the same work's time without
+    the profiler), which kernels take the time."""
+    by_name = kernels_by_name(prof)
     busy_ms = sum(t for _, t in by_name.values()) / 1e3
     if busy_ms <= 0:
         return {"device_time": "not measured (the profiler reported no "
@@ -958,6 +986,471 @@ def frontend_phase(dev, profile: bool) -> dict:
         fail("the front-end's detection on the card differs from the CPU's")
     out["fe_card_equals_cpu_detections"] = int(hd[2].sum())
     return out
+
+
+# ------------------------------------------------------------- back-end
+# bench.py's two RBCD graphs: (poses per robot, intra / inter loop
+# closures a robot / a pair of robots); 6 robots, 20 % outliers
+RBCD_GRAPHS = {"6x256": (256, 16), "6x2048": (2048, 64)}
+# card vs CPU round at 6 x 256: limits are this many times the CPU float32
+# round's distance from float64 (about 2e-4 max and 6e-7 mean there)
+ROUND_TOL_K = 3.0
+# the GNC schedule of dist/rounds.py at cli/run.py's cadence: gnc_init at
+# Y0, gnc_update_weights after every 2nd round from round 8. Its length
+# and outcome on the 6 x 256 graph come from the JAX package on the CPU
+# (`gnc_schedule_reference` in tests/test_torch_rbcd.py): after 66 rounds
+# mu has passed 1 and the loop closures under 0.5 no longer change; they
+# are these edges (53 ground-truth outliers, every one under 0.1, and
+# 4 inliers), and edge 1717 lies within 0.05 of 0.5
+GNC_ROUNDS, GNC_EVERY, GNC_BURNIN = 66, 2, 8
+GNC_UNDER_05 = (
+    1532, 1537, 1542, 1548, 1550, 1553, 1554, 1556, 1557, 1563, 1566, 1575,
+    1583, 1585, 1587, 1588, 1607, 1611, 1616, 1617, 1618, 1622, 1634, 1635,
+    1653, 1657, 1664, 1667, 1668, 1670, 1673, 1674, 1676, 1680, 1681, 1690,
+    1694, 1697, 1699, 1703, 1705, 1725, 1729, 1731, 1738, 1746, 1747, 1750,
+    1754, 1759, 1760, 1762, 1764, 1769, 1772, 1773, 1776)
+GNC_NEAR_05 = (1717,)
+# entry()'s step: launches of each kernel (K4 twice in each gate)
+ENTRY_LAUNCHES = {"pair_top2": 1, "sample_gather_perm_t": 4,
+                  "rigid_counts": 1, "essential_counts": 1}
+
+
+def rbcd_setup(n_poses: int, n_lc: int, dev):
+    """bench.py's `prepare_rbcd` graph in the port: odometry
+    initialization, lift with the LIFTING key, RbcdConfig(), buckets,
+    unit weights."""
+    from kimera_multi_tpu_torch.core import rng, stiefel
+    from kimera_multi_tpu_torch.io import synthetic
+    from kimera_multi_tpu_torch.solve import pgo, rbcd
+
+    g = synthetic.multi_robot_graph(seed=2, n_robots=6, n_poses=n_poses,
+                                    outlier_ratio=0.2, n_intra_lc=n_lc,
+                                    n_inter_lc=n_lc, device=dev)
+    p0 = pgo.init_from_odometry(g.edges, g.n_robots, g.poses_per_robot)
+    ylift = stiefel.random_lifting_matrix(
+        rng.derive(rng.base_key(0, device=dev), rng.Stream.LIFTING), 5, 3)
+    Y0 = rbcd.lift_params(p0, ylift, g.n_robots, g.poses_per_robot)
+    return dict(g=g, Y0=Y0, cfg=rbcd.RbcdConfig(),
+                buckets=rbcd.bucket_edges(g.edges, g.n_robots, n_poses),
+                w=torch.ones(g.edges.capacity, device=dev),
+                act=torch.ones(g.n_robots, dtype=torch.bool, device=dev))
+
+
+def rbcd_round(s, Y, w=None):
+    from kimera_multi_tpu_torch.solve import rbcd
+
+    return rbcd.rbcd_round_reference(
+        Y, s["act"], s["g"].edges, s["w"] if w is None else w, s["cfg"],
+        s["g"].poses_per_robot, s["buckets"])
+
+
+def on_cpu(s, dtype=torch.float32):
+    """The same problem on the CPU (float64: the exact round's stand-in)."""
+    import dataclasses
+
+    from kimera_multi_tpu_torch.solve import rbcd
+
+    e = s["g"].edges.to("cpu")
+    e = dataclasses.replace(e, **{f: getattr(e, f).to(dtype)
+                                  for f in ("R", "t", "kappa", "tau")})
+    return dict(s, g=s["g"]._replace(edges=e), Y0=s["Y0"].cpu().to(dtype),
+                buckets=rbcd.bucket_edges(e, s["g"].n_robots,
+                                          s["g"].poses_per_robot),
+                w=torch.ones(e.capacity, dtype=dtype),
+                act=s["act"].cpu())
+
+
+def round_tolerance(got, ref32, ref64) -> dict:
+    """A float32 round `got` against the CPU's float32 round `ref32` of
+    the same input, the limits set by the CPU run alone (the rule of
+    tests/test_torch_cuda_kernels.py): the largest and the mean difference
+    each at most 3 times the CPU round's own distance (largest, mean) from
+    the float64 round `ref64`. Since |got - ref32| <= |got - ref64| +
+    |ref32 - ref64|, a round up to twice as far from the exact round as
+    the CPU's passes; one computed in TF32 or with a wrong gather is
+    orders of magnitude further."""
+    d = (got - ref32).abs()
+    e_ref = (ref32.double() - ref64).abs()
+    e_got = (got.double() - ref64).abs()
+    lim_max = ROUND_TOL_K * float(e_ref.max())
+    lim_mean = ROUND_TOL_K * float(e_ref.mean())
+    mx, mean = float(d.max()), float(d.mean())
+    return dict(max=mx, mean=mean, limit_max=lim_max, limit_mean=lim_mean,
+                card_vs_float64_max=float(e_got.max()),
+                card_vs_float64_mean=float(e_got.mean()),
+                ok=mx <= lim_max and mean <= lim_mean)
+
+
+def backend_phase(dev, profile: bool) -> dict:
+    """(a) one bucketed RBCD round on bench.py's 6 x 256 and 6 x 2048
+    graphs, timed warm; checks: two card runs at 6 x 2048 give the same
+    bits, the card's round at 6 x 256 agrees with the CPU's, 20 rounds of
+    `solve_rounds` at 6 x 256 lower the lifted cost. (b) the GNC schedule
+    at 6 x 256 on the card and on the CPU against the JAX package's
+    recorded outcome. Returns the stage entries."""
+    from kimera_multi_tpu_torch.solve import rbcd
+
+    out = {}
+    for name, (n_poses, n_lc) in RBCD_GRAPHS.items():
+        t0 = time.time()
+        s = rbcd_setup(n_poses, n_lc, dev)
+        torch.cuda.synchronize()
+        g = s["g"]
+        n_edges = int(g.edges.valid.sum())
+        log(f"back-end {name}: {n_edges} edges ({g.edges.capacity} slots), "
+            f"buckets of {s['buckets'].idx.shape[1]} edges, incidence "
+            f"table {tuple(s['buckets'].inc.shape)}; set up in "
+            f"{time.time() - t0:.2f} s")
+        Y1 = rbcd_round(s, s["Y0"])
+        Y1b = rbcd_round(s, s["Y0"])
+        torch.cuda.synchronize()
+        if not torch.isfinite(Y1).all():
+            fail(f"back-end {name}: a non-finite block after one round")
+        n = 10 if n_poses <= 256 else 5
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            rbcd_round(s, s["Y0"])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / n * 1e3
+        ev_ms = time_ms(lambda: rbcd_round(s, s["Y0"]), iters=n, warmup=1)
+        flat = lambda Y: Y.reshape(-1, *Y.shape[2:])
+        c0 = float(rbcd.lifted_cost(flat(s["Y0"]), g.edges, s["w"], n_poses))
+        c1 = float(rbcd.lifted_cost(flat(Y1), g.edges, s["w"], n_poses))
+        out[f"rbcd_round_ms_{name}"] = host_ms
+        out[f"rbcd_rounds_per_s_{name}"] = 1e3 / host_ms
+        out[f"rbcd_round_event_ms_{name}"] = ev_ms
+        out[f"rbcd_edges_{name}"] = n_edges
+        log(f"back-end {name}: one round {host_ms:.2f} ms on the host "
+            f"clock ({1e3 / host_ms:.1f} rounds/s), {ev_ms:.2f} ms by CUDA "
+            f"events; lifted cost {c0:.6g} -> {c1:.6g}")
+        if not c1 < c0:
+            fail(f"back-end {name}: one round did not lower the cost")
+        if name == "6x2048":
+            same = torch.equal(Y1, Y1b)
+            log(f"back-end {name}: two card runs of one round bit-identical: "
+                f"{same}")
+            if not same:
+                fail("two card runs of one RBCD round differ")
+            out["rbcd_card_runs_identical_6x2048"] = True
+            if profile:
+                print(json.dumps({"profile_rbcd": profile_call(
+                    lambda: rbcd_round(s, s["Y0"]), host_ms, "round")}),
+                    flush=True)
+                print(json.dumps({"profile_rbcd_parts": profile_rbcd_parts(
+                    s)}), flush=True)
+            continue
+        if profile:
+            print(json.dumps({"profile_rbcd_6x256": profile_call(
+                lambda: rbcd_round(s, s["Y0"]), host_ms, "round")}),
+                flush=True)
+        # 6 x 256: the card against the CPU, float32 and float64
+        s32, s64 = on_cpu(s), on_cpu(s, torch.float64)
+        Yc = rbcd_round(s32, s32["Y0"])
+        Y64 = rbcd_round(s64, s64["Y0"])
+        tol = round_tolerance(Y1.cpu(), Yc, Y64)
+        log(f"back-end {name}: card vs CPU, one round: max |diff| "
+            f"{tol['max']:.3e} (limit {tol['limit_max']:.3e}), mean "
+            f"{tol['mean']:.3e} (limit {tol['limit_mean']:.3e}); limits: "
+            f"{ROUND_TOL_K:g} x the CPU float32 round's distance from the "
+            f"float64 round; the card's own distance from it: max "
+            f"{tol['card_vs_float64_max']:.3e}, mean "
+            f"{tol['card_vs_float64_mean']:.3e}")
+        if not tol.pop("ok"):
+            fail("the card's RBCD round differs from the CPU's")
+        out["rbcd_card_vs_cpu_6x256"] = tol
+        Y20, costs = rbcd.solve_rounds(s["Y0"], s["act"], g.edges, n_poses,
+                                       s["cfg"], n_rounds=20,
+                                       buckets=s["buckets"])
+        c20 = float(costs[-1])
+        log(f"back-end {name}: solve_rounds, 20 rounds: lifted cost "
+            f"{c0:.6g} -> {c20:.6g}")
+        if not c20 < c0:
+            fail("20 RBCD rounds did not lower the lifted cost")
+        out["rbcd_cost_20_rounds_6x256"] = [c0, c20]
+        out.update(gnc_phase(s, on_cpu(s)))
+    return out
+
+
+def gnc_phase(s_dev, s_cpu) -> dict:
+    """(b) the GNC schedule at 6 x 256 on the card and on the CPU."""
+    from kimera_multi_tpu_torch.solve import gnc, rbcd
+
+    finals = []
+    for s in (s_dev, s_cpu):
+        e, ppr = s["g"].edges, s["g"].poses_per_robot
+        sq = lambda Y: rbcd.lifted_edge_sq_errors(
+            Y.reshape(-1, *Y.shape[2:]), e, ppr)
+        Y = s["Y0"]
+        state = gnc.gnc_init(sq(Y), e.etype, e.valid,
+                             gnc.barc2_from_quantile(0.9, 6))
+        t = time.perf_counter()
+        for i in range(GNC_ROUNDS):
+            Y = rbcd_round(s, Y, state.weights)
+            if (i + 1) % GNC_EVERY == 0 and i + 1 >= GNC_BURNIN:
+                state = gnc.gnc_update_weights(state, sq(Y), e.etype,
+                                               e.valid)
+        w = state.weights.cpu().numpy()
+        finals.append((w, (time.perf_counter() - t) * 1e3))
+    g = s_dev["g"]
+    lc = (g.edges.valid & (g.edges.etype != 1)).cpu().numpy()
+    out_gt = g.is_outlier.cpu().numpy()
+    jax_set = np.zeros_like(lc)
+    jax_set[list(GNC_UNDER_05)] = True
+    free = np.zeros_like(lc)
+    free[list(GNC_NEAR_05)] = True
+    res = {}
+    for (w, ms), where in zip(finals, ("card", "cpu")):
+        under = lc & (w < 0.5)
+        differ = under != jax_set
+        res[where] = under
+        log(f"GNC on the {where}: {GNC_ROUNDS} rounds in {ms:.0f} ms; "
+            f"{int(under.sum())} loop closures under 0.5 "
+            f"({int(jax_set.sum())} in the JAX run); differing "
+            f"{int(differ.sum())}, of them within 0.05 of 0.5 in the JAX "
+            f"run {int((differ & free).sum())}; ground-truth outliers under "
+            f"0.1 {int((out_gt & (w < 0.1)).sum())} of {int(out_gt.sum())}")
+        if (differ & ~free).any():
+            fail(f"GNC on the {where}: loop closures "
+                 f"{np.nonzero(differ & ~free)[0].tolist()} fall on the "
+                 f"other side of 0.5 than in the JAX run")
+        if not (w[out_gt] < 0.1).all():
+            fail(f"GNC on the {where}: a ground-truth outlier weighs 0.1 or "
+                 f"more")
+    both = res["card"] != res["cpu"]
+    if (both & ~free).any():
+        fail("GNC: the card and the CPU put different loop closures under "
+             "0.5")
+    return {"gnc_rounds_6x256": GNC_ROUNDS,
+            "gnc_ms_6x256": finals[0][1], "gnc_ms_6x256_cpu": finals[1][1],
+            "gnc_under_05": int(res["card"].sum()),
+            "gnc_near_05_allowed": len(GNC_NEAR_05)}
+
+
+def profile_call(fn, wall_ms: float, unit: str) -> dict:
+    """One warm call of fn() under torch.profiler: device kernels, busy
+    time, idle share against `wall_ms` (its time without the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = device_summary(prof, wall_ms)
+    if "device_kernels_per_chunk" in out:
+        out[f"device_kernels_per_{unit}"] = out.pop("device_kernels_per_chunk")
+        out[f"{unit}_ms_unprofiled"] = out.pop("chunk_ms_unprofiled")
+    return out
+
+
+# aten operations that only make a view (no kernel)
+VIEW_OPS = {"view", "_unsafe_view", "unsqueeze", "squeeze", "select",
+            "slice", "expand", "permute", "transpose", "t", "as_strided",
+            "alias", "detach", "lift_fresh", "reshape", "unbind", "split",
+            "split_with_sizes", "_reshape_alias", "diagonal"}
+
+
+def aten_ops(fn) -> dict:
+    """The aten operations fn() dispatches that compute (views left
+    out), name -> count."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    count: dict = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name not in VIEW_OPS:
+                count[name] = count.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return count
+
+
+def profile_rbcd_parts(s) -> dict:
+    """The parts of one bucketed round, each run warm on its own at this
+    graph: device kernels by name, busy ms, host ms a call and the aten
+    operations that compute. A round is the preconditioner, then 3 cycles
+    of (gradient, 8 CG steps, global step); a CG step is the difference of
+    `_newton_cg` at 1 and at 0 CG iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kimera_multi_tpu_torch.core import stiefel
+    from kimera_multi_tpu_torch.solve import rbcd
+
+    g, b, w, cfg, Y = s["g"], s["buckets"], s["w"], s["cfg"], s["Y0"]
+    n = g.poses_per_robot
+    robots = torch.arange(g.n_robots, device=Y.device)
+    blk = rbcd._bucket_block(robots, b, w[b.idx])
+    Minv = rbcd.bucket_precond(b, robots, w, n)
+    D = rbcd._newton_cg(blk, Y, Y, cfg, Minv)
+    cg = lambda k: lambda: rbcd._newton_cg(
+        blk, Y, Y, cfg._replace(cg_iters=k), Minv)
+    parts = {
+        "round": lambda: rbcd.rbcd_round_reference(
+            Y, s["act"], g.edges, w, cfg, n, b),
+        "preconditioner": lambda: rbcd.bucket_precond(b, robots, w, n),
+        "gradient": cg(0), "gradient_and_cg_step": cg(1),
+        "global_step": lambda: rbcd._global_step(Y, D, g.edges, w, n, cfg),
+        "retraction_of_5_trials": lambda: stiefel.lifted_retract(
+            Y[None], 0.1 * D[None].expand(5, *D.shape), 3),
+    }
+    raw = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / 5 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        by_name = kernels_by_name(prof)
+        raw[name] = (host_ms, {k: c for k, (c, _) in by_name.items()},
+                     {k: t for k, (_, t) in by_name.items()}, aten_ops(fn))
+
+    def diff(a: dict, b: dict) -> dict:
+        return {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b)}
+
+    one, zero = raw.pop("gradient_and_cg_step"), raw["gradient"]
+    raw["cg_step"] = (one[0] - zero[0],) + tuple(
+        diff(a, b) for a, b in zip(one[1:], zero[1:]))
+    out = {}
+    for name, (host_ms, counts, times, ops) in raw.items():
+        top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
+        out[name] = {
+            "host_ms": host_ms,
+            "device_kernels": sum(counts.values()),
+            "device_busy_ms": sum(times.values()) / 1e3,
+            "aten_ops_computing": sum(ops.values()),
+            "top_ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10]),
+            "top_kernels": [{"name": k.replace("void ", "").replace(
+                "at::native::", "")[:70], "count": c} for k, c in top],
+        }
+    return out
+
+
+def entry_phase(dev, profile: bool, check) -> dict:
+    """(c) entry()'s fused step on the card: launches counted, no plain
+    version run, each kernel call of the counted step held exactly against
+    its plain version on the tensors it was given (`check`), timed warm,
+    and the step held against the step on the CPU."""
+    from kimera_multi_tpu_torch import entry
+    from kimera_multi_tpu_torch.kernels import (_build, fivept, gather,
+                                                hamming, score)
+
+    step, args = entry.entry()
+    if not all(a.device.type == "cuda" for a in args):
+        fail("entry() did not put its inputs on the card")
+    step(*args)  # warm-up
+    torch.cuda.synchronize()
+    plain = [(hamming, "knn2_lowe_match"), (hamming, "_pair_top2_ref"),
+             (gather, "sample_gather_perm_t_ref"),
+             (gather, "sample_gather_t_ref"), (gather, "permute_cols_ref"),
+             (fivept, "_fivept_models_ref"), (fivept, "presel_counts_ref"),
+             (score, "rigid_counts_ref"), (score, "essential_counts_ref")]
+    # the wrappers of the step's kernels, and each one's plain version
+    wrappers = {
+        "pair_top2": (hamming, "_pair_top2",
+                      lambda *a: hamming._pair_top2_ref(*a)),
+        "sample_gather_perm_t": (
+            gather, "sample_gather_perm_t",
+            lambda d, p, o, inv: gather.sample_gather_perm_t_ref(d, p, o)),
+        "rigid_counts": (score, "rigid_counts",
+                         lambda *a: score.rigid_counts_ref(*a)),
+        "essential_counts": (score, "essential_counts",
+                             lambda *a: score.essential_counts_ref(*a)),
+    }
+    ran, calls = [], []
+    saved = [getattr(m, n) for m, n in plain]
+    saved_w = {k: getattr(m, n) for k, (m, n, _) in wrappers.items()}
+
+    def tripwire(name, fn):
+        def wrapped(*a, **k):
+            ran.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    def recorder(name, fn):
+        def wrapped(*a):
+            got = fn(*a)
+            calls.append((name, a, got))
+            return got
+        return wrapped
+
+    try:
+        for (m, n), fn in zip(plain, saved):
+            setattr(m, n, tripwire(n, fn))
+        for k, (m, n, _) in wrappers.items():
+            setattr(m, n, recorder(k, saved_w[k]))
+        _build.reset_launches()
+        out = step(*args)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    finally:
+        for (m, n), fn in zip(plain, saved):
+            setattr(m, n, fn)
+        for k, (m, n, _) in wrappers.items():
+            setattr(m, n, saved_w[k])
+    log(f"entry(): step launches {launches}; plain versions run: {ran}")
+    if ran:
+        fail(f"entry()'s step ran plain versions {ran}")
+    for name, n in launches.items():
+        if n != ENTRY_LAUNCHES.get(name, 0):
+            fail(f"entry()'s step launched {name} {n} times, expected "
+                 f"{ENTRY_LAUNCHES.get(name, 0)}")
+    log("entry(): each kernel call of the step against its plain version "
+        "on the same tensors (limit: exact equality)")
+    for name, a, got in calls:
+        check(name, got, wrappers[name][2](*a),
+              f"entry() step, {'x'.join(map(str, a[0].shape))}")
+    n_calls = {k: sum(c[0] == k for c in calls) for k in wrappers}
+    if n_calls != ENTRY_LAUNCHES:
+        fail(f"entry()'s step called the kernels' wrappers {n_calls} times, "
+             f"expected {ENTRY_LAUNCHES}")
+    n = 20
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        step(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / n * 1e3
+    ev_ms = time_ms(lambda: step(*args), iters=n)
+    if profile:
+        print(json.dumps({"profile_slam_step": profile_call(
+            lambda: step(*args), host_ms, "step")}), flush=True)
+    step_c, args_c = entry.entry(device="cpu")
+    ref = step_c(*args_c)
+    got = {k: v.cpu() for k, v in out.items()}
+    errs = {k: float((got[k] - ref[k]).abs().max())
+            for k in ("Y", "lc_R", "lc_t")}
+    cost_rel = abs(float(got["cost"]) - float(ref["cost"])) / float(
+        ref["cost"])
+    log(f"entry(): slam_step {host_ms:.2f} ms host clock, {ev_ms:.2f} ms by "
+        f"CUDA events; card vs CPU: lc_ok {got['lc_ok'].tolist()} / "
+        f"{ref['lc_ok'].tolist()}, stereo inliers "
+        f"{got['stereo_inliers'].tolist()} / {ref['stereo_inliers'].tolist()}"
+        f", mono inliers {got['mono_inliers'].tolist()} / "
+        f"{ref['mono_inliers'].tolist()}; max |diff| {errs} (limit 1e-5), "
+        f"cost {float(got['cost']):.6g} (relative diff {cost_rel:.2e}, "
+        f"limit 1e-5)")
+    if not (torch.equal(got["lc_ok"], ref["lc_ok"])
+            and torch.equal(got["stereo_inliers"], ref["stereo_inliers"])):
+        fail("entry(): gates or stereo counts differ between card and CPU")
+    if max(errs.values()) > 1e-5 or cost_rel > 1e-5:
+        fail("entry(): the step on the card differs from the CPU's")
+    if not got["lc_ok"].all():
+        fail("entry(): a candidate pair of the step was rejected")
+    return {"slam_step_ms": host_ms, "slam_step_event_ms": ev_ms,
+            "slam_step_launches": launches,
+            "slam_step_card_vs_cpu": dict(errs, cost_rel=cost_rel)}
 
 
 def main() -> None:
@@ -1779,6 +2272,9 @@ def main() -> None:
     kernels[1]["launches_per_chunk"] = launches5["hamming_top2"] // n_chunks
     # ------------------------------------------------------------------ 7
     stages.update(frontend_phase(dev, profile))
+    # ------------------------------------------------------------------ 8
+    stages.update(backend_phase(dev, profile))
+    stages.update(entry_phase(dev, profile, check))
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

@@ -7,18 +7,21 @@ explicit `device`, explicit keys. Nothing here imports jax or the JAX
 package.
 
 Layer map (what is ported so far):
-  core/      device selection, threefry RNG policy, SE(3) helpers, LCD
-             status codes
+  core/      device selection, threefry RNG policy (uniform and normal
+             draws), SO(3) / SE(3) Lie operations, Stiefel manifold,
+             pose-graph containers and LCD status codes
   kernels/   Hamming 2-NN matcher and DB-wide top-2 search, BoW scoring,
              sample gathers, hypothesis scoring, SoA minimal solvers,
-             five-point model generation, batched RANSAC; CUDA C++ under
-             csrc/
+             five-point model generation, batched RANSAC, small dense
+             linear algebra; CUDA C++ under csrc/
   frontend/  BoW vocabulary and database, islands and detection,
              FrontendConfig / VerifiedLC, the batched front-end
              (make_detector, make_verifier, BatchedFrontend)
-  io/        synthetic keyframe stores, candidate pairs and the simulated
-             multi-robot world (numpy)
+  solve/     Gauss-Newton PGO, rank-lifted RBCD rounds, GNC-TLS weights
+  io/        synthetic keyframe stores, candidate pairs, multi-robot pose
+             graphs and the simulated multi-robot world (numpy)
   convert    state handed over from the JAX package as numpy
+  entry      the fused SLAM step: verification, then one RBCD round
 """
 
 __version__ = "0.1.0"

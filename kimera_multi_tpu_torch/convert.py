@@ -3,8 +3,9 @@
 The JAX package hands its state over as numpy arrays and plain values
 (this module imports neither jax nor that package): the keyframe stores,
 the raw words of a threefry key (`jax.random.key_data(key)`), its
-`FrontendConfig` and its BoW `Vocabulary`. What comes out computes the same
-thing in the port.
+`FrontendConfig`, its BoW `Vocabulary`, and the back-end's pose graph,
+SE(3) parameters, lifted blocks and GNC state. What comes out computes
+the same thing in the port.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.containers import GncState, LiftedPoseBlocks, PoseGraphEdges
 from .frontend.dlc import FrontendConfig
 from .frontend.lcd import LcdParams
 from .frontend.vocab import Vocabulary, _from_numpy
@@ -71,3 +73,51 @@ def vocabulary_from_numpy(k, depth, centroids, word_weights, node_valid,
     return _from_numpy(k, depth, [np.asarray(c) for c in centroids],
                        np.asarray(word_weights),
                        [np.asarray(v) for v in node_valid], device)
+
+
+def edges_from_numpy(src_robot, src_pose, dst_robot, dst_pose, R, t, kappa,
+                     tau, etype, device="cuda") -> PoseGraphEdges:
+    """The fields of the JAX package's `PoseGraphEdges` as numpy arrays ->
+    the port's, on `device` (int32 indices and codes, float32 values)."""
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32))
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    E = np.shape(etype)[0]
+    if np.shape(R) != (E, 3, 3) or np.shape(t) != (E, 3):
+        raise ValueError("expected (E, 3, 3) rotations and (E, 3) "
+                         "translations")
+    return PoseGraphEdges(
+        src_robot=i32(src_robot), src_pose=i32(src_pose),
+        dst_robot=i32(dst_robot), dst_pose=i32(dst_pose), R=f32(R), t=f32(t),
+        kappa=f32(kappa), tau=f32(tau), etype=i32(etype)).to(device)
+
+
+def pgo_params_from_numpy(R, t, device="cuda"):
+    """The JAX package's `PgoParams` (R (N, 3, 3), t (N, 3)) -> the
+    port's."""
+    from .solve.pgo import PgoParams
+
+    return PgoParams(R=torch.tensor(np.asarray(R, np.float32), device=device),
+                     t=torch.tensor(np.asarray(t, np.float32), device=device))
+
+
+def lifted_from_numpy(Y, active=None, num_poses=None,
+                      device="cuda") -> LiftedPoseBlocks:
+    """Lifted blocks Y (R, N, r, d+1) -> `LiftedPoseBlocks`; every robot
+    active and every pose in use unless told otherwise."""
+    Y = torch.tensor(np.asarray(Y, np.float32))
+    n_robots, n_poses = Y.shape[:2]
+    active = (np.ones(n_robots, bool) if active is None
+              else np.asarray(active, bool))
+    num_poses = (np.full(n_robots, n_poses, np.int32) if num_poses is None
+                 else np.asarray(num_poses, np.int32))
+    return LiftedPoseBlocks(Y=Y, active=torch.from_numpy(active),
+                            num_poses=torch.from_numpy(num_poses)).to(device)
+
+
+def gnc_state_from_numpy(mu, weights, barc2, outer_iter,
+                         device="cuda") -> GncState:
+    """The fields of the JAX package's `GncState` -> the port's."""
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32))
+    return GncState(mu=f32(mu), weights=f32(weights), barc2=f32(barc2),
+                    outer_iter=torch.tensor(
+                        np.asarray(outer_iter, np.int32))).to(device)

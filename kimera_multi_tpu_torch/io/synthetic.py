@@ -1,4 +1,5 @@
-"""Synthetic loop-closure candidates and keyframe stores (numpy, host).
+"""Synthetic loop-closure candidates, keyframe stores and multi-robot pose
+graphs (numpy on the host).
 
 Candidate pairs as the kernel benchmark of the JAX package makes them:
 two views of one random landmark cloud under a random relative pose, ORB
@@ -6,6 +7,9 @@ descriptors that agree up to a few flipped bits for ~60% of the features
 and are unrelated clutter for the rest. `make_stores_np` lays such pairs
 out as per-robot keyframe stores with the candidate index lists a
 verifier takes, plus pairs of unrelated frames that it must reject.
+`multi_robot_graph` is the JAX package's pose-graph generator (robots on
+interleaved circles, noisy odometry, intra- and inter-robot loop closures
+of which a share are gross outliers), with the same numpy draws.
 """
 
 from __future__ import annotations
@@ -13,6 +17,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from ..core import backend
+from ..core.containers import (EDGE_ODOMETRY, EDGE_PRIVATE_LC,
+                               EDGE_SHARED_LC, PoseGraphEdges)
 
 
 def _so3_exp_np(w: np.ndarray) -> np.ndarray:
@@ -122,3 +131,155 @@ def make_stores_np(n_robots: int, n_frames: int, K: int, seed: int = 0,
         tr=(t_flat // n_frames).astype(np.int32),
         tm=(t_flat % n_frames).astype(np.int32),
         is_true=is_true, R_gt=R_gt.astype(np.float32), t_gt=t_gt)
+
+
+class SyntheticGraph(NamedTuple):
+    edges: PoseGraphEdges
+    R_gt: torch.Tensor  # (n_robots * n_poses, 3, 3)
+    t_gt: torch.Tensor  # (n_robots * n_poses, 3)
+    is_outlier: torch.Tensor  # (E,) bool ground-truth outlier labels
+    n_robots: int
+    poses_per_robot: int
+
+
+def multi_robot_graph_np(
+    seed: int = 0,
+    n_robots: int = 2,
+    n_poses: int = 64,
+    edge_capacity: int | None = None,
+    rot_noise: float = 0.005,
+    trans_noise: float = 0.01,
+    n_intra_lc: int = 8,
+    n_inter_lc: int = 12,
+    outlier_ratio: float = 0.3,
+    kappa: float = 1e4,
+    tau: float = 1e2,
+) -> dict:
+    """The graph of `multi_robot_graph` as numpy arrays: the edge fields
+    (`src_robot`, ..., `etype`), `R_gt`, `t_gt` and `is_outlier`."""
+    npr = np.random.default_rng(seed)
+    N = n_robots * n_poses
+
+    # ground truth: concentric circles with phase offsets
+    R_gt = np.zeros((n_robots, n_poses, 3, 3), np.float32)
+    t_gt = np.zeros((n_robots, n_poses, 3), np.float32)
+    for r in range(n_robots):
+        radius = 5.0 + 0.3 * r
+        phase = 2 * np.pi * r / max(n_robots, 1) * 0.25
+        ang = np.linspace(0, 1.5 * np.pi, n_poses) + phase
+        t_gt[r, :, 0] = radius * np.cos(ang)
+        t_gt[r, :, 1] = radius * np.sin(ang)
+        t_gt[r, :, 2] = 0.1 * r
+        yaw = ang + np.pi / 2
+        w = np.stack([0 * yaw, 0 * yaw, yaw], -1)
+        R_gt[r] = _so3_exp_np(w)
+    R_gt = R_gt.reshape(N, 3, 3)
+    t_gt = t_gt.reshape(N, 3)
+
+    def rel_batch(i, j):
+        Ri, ti = R_gt[i], t_gt[i]
+        Rj, tj = R_gt[j], t_gt[j]
+        Rb = np.einsum("eji,ejk->eik", Ri, Rj)
+        tb = np.einsum("eji,ej->ei", Ri, tj - ti)
+        return Rb, tb
+
+    def noisy_batch(Rb, tb):
+        n = Rb.shape[0]
+        dw = npr.normal(0, rot_noise, (n, 3)).astype(np.float32)
+        Rn = _so3_exp_np(dw) @ Rb
+        tn = tb + npr.normal(0, trans_noise, (n, 3)).astype(np.float32)
+        return Rn.astype(np.float32), tn.astype(np.float32)
+
+    rr = np.repeat(np.arange(n_robots), n_poses - 1)
+    kk = np.tile(np.arange(n_poses - 1), n_robots)
+    io_ = rr * n_poses + kk
+    R_odo, t_odo = noisy_batch(*rel_batch(io_, io_ + 1))
+
+    lc_rows = []  # (r1, k1, r2, k2, etype, is_out)
+
+    def add_lc(r1, r2, count, etype):
+        made = 0
+        trials = 0
+        while made < count and trials < count * 50:
+            trials += 1
+            k1 = int(npr.integers(0, n_poses))
+            k2 = int(npr.integers(0, n_poses))
+            if r1 == r2 and abs(k1 - k2) < max(5, n_poses // 8):
+                continue
+            i, j = r1 * n_poses + k1, r2 * n_poses + k2
+            if np.linalg.norm(t_gt[i] - t_gt[j]) > 3.0:
+                continue
+            is_out = bool(npr.uniform() < outlier_ratio)
+            lc_rows.append((r1, k1, r2, k2, etype, is_out))
+            made += 1
+
+    for r in range(n_robots):
+        add_lc(r, r, n_intra_lc, EDGE_PRIVATE_LC)
+    for r1 in range(n_robots):
+        for r2 in range(r1 + 1, n_robots):
+            add_lc(r1, r2, n_inter_lc, EDGE_SHARED_LC)
+
+    n_lc = len(lc_rows)
+    if n_lc:
+        lr1, lk1, lr2, lk2, let = (
+            np.asarray([x[i] for x in lc_rows], np.int32) for i in range(5))
+        lout = np.asarray([x[5] for x in lc_rows], bool)
+        R_lc, t_lc = noisy_batch(*rel_batch(lr1 * n_poses + lk1,
+                                            lr2 * n_poses + lk2))
+        n_out = int(lout.sum())
+        if n_out:  # gross random transforms
+            R_lc[lout] = _so3_exp_np(
+                npr.normal(0, 1.5, (n_out, 3)).astype(np.float32))
+            t_lc[lout] = npr.uniform(-8, 8, (n_out, 3)).astype(np.float32)
+    else:
+        lr1 = lk1 = lr2 = lk2 = let = np.zeros(0, np.int32)
+        lout = np.zeros(0, bool)
+        R_lc = np.zeros((0, 3, 3), np.float32)
+        t_lc = np.zeros((0, 3), np.float32)
+
+    E_odo = len(io_)
+    E = E_odo + n_lc
+    cap = edge_capacity or int(2 ** np.ceil(np.log2(max(E, 8))))
+    if cap < E:
+        raise ValueError(f"edge_capacity {cap} < generated edges {E}")
+
+    def col(odo_vals, lc_vals, dtype=np.int32):
+        out = np.zeros(cap, dtype)
+        out[:E_odo] = odo_vals
+        out[E_odo:E] = lc_vals
+        return out
+
+    Rm = np.broadcast_to(np.eye(3, dtype=np.float32), (cap, 3, 3)).copy()
+    tm = np.zeros((cap, 3), np.float32)
+    Rm[:E_odo], tm[:E_odo] = R_odo, t_odo
+    Rm[E_odo:E], tm[E_odo:E] = R_lc, t_lc
+    kap = np.zeros(cap, np.float32)
+    ta = np.zeros(cap, np.float32)
+    kap[:E] = kappa
+    ta[:E] = tau
+    out = np.zeros(cap, bool)
+    out[E_odo:E] = lout
+    return dict(
+        src_robot=col(rr, lr1), src_pose=col(kk, lk1),
+        dst_robot=col(rr, lr2), dst_pose=col(kk + 1, lk2),
+        R=Rm, t=tm, kappa=kap, tau=ta,
+        etype=col(np.full(E_odo, EDGE_ODOMETRY, np.int32), let),
+        R_gt=R_gt, t_gt=t_gt, is_outlier=out)
+
+
+def multi_robot_graph(seed: int = 0, n_robots: int = 2, n_poses: int = 64,
+                      *args, device="cuda", **kwargs) -> SyntheticGraph:
+    """The JAX package's `multi_robot_graph` (same arguments, same numpy
+    draws, so the same graph for a seed), as tensors on `device`."""
+    from ..convert import edges_from_numpy
+
+    dev = backend.resolve_device(device)
+    g = multi_robot_graph_np(seed, n_robots, n_poses, *args, **kwargs)
+    return SyntheticGraph(
+        edges=edges_from_numpy(**{f: g[f] for f in (
+            "src_robot", "src_pose", "dst_robot", "dst_pose", "R", "t",
+            "kappa", "tau", "etype")}, device=dev),
+        R_gt=torch.from_numpy(g["R_gt"]).to(dev),
+        t_gt=torch.from_numpy(g["t_gt"]).to(dev),
+        is_outlier=torch.from_numpy(g["is_outlier"]).to(dev),
+        n_robots=n_robots, poses_per_robot=n_poses)

@@ -208,3 +208,15 @@ def smallest_eigvec_psd(N: torch.Tensor, iters: int = 4,
         v = _tri_solve_unrolled(L, y, lower=False)
         v = v / torch.clamp(_norm(v), min=_EPS)
     return v
+
+
+def polar_orthonormalize(M: torch.Tensor) -> torch.Tensor:
+    """Closest orthonormal-column matrix to (..., r, 3): the polar factor
+    M (M^T M)^(-1/2) through the closed-form 3x3 eigendecomposition, the
+    eigenvalues clamped at 1e-12 (needs full column rank, which retraction
+    inputs Y + small steps have)."""
+    A = M.transpose(-1, -2) @ M
+    evals, V = eigh3x3(A)
+    s = 1.0 / torch.sqrt(torch.clamp(evals, min=1e-12))
+    inv_sqrt = (V * s[..., None, :]) @ V.transpose(-1, -2)
+    return M @ inv_sqrt

@@ -16,6 +16,11 @@ from kimera_multi_tpu.kernels import bow as jbow
 from kimera_multi_tpu_torch.frontend import bow_db as tdb
 from kimera_multi_tpu_torch.kernels import bow as tbow
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _bows(n, W, n_words=200, seed=0, pad_frac=0.3):
     """n padded BoW vectors of W slots: distinct ids per vector, -1 padding

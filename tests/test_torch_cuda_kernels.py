@@ -571,3 +571,45 @@ def test_detection_cuda_equals_cpu(dev):
     assert torch.equal(d0[0], d1[0]) and torch.equal(d0[2], d1[2])
     assert int(d0[2].sum()) > 0
     np.testing.assert_allclose(d1[1].numpy(), d0[1].numpy(), rtol=1e-6)
+
+
+def test_rbcd_round_deterministic_and_equal_to_cpu(dev):
+    """One bucketed RBCD round run twice on the card gives the same bits
+    (the reductions onto poses sum along an incidence table in a fixed
+    order; no float atomics), and agrees with the CPU's round: within
+    1e-5 (the tolerance of tests/test_torch_rbcd.py against the JAX
+    package on a graph this size), and, the rule `chip_smoke.py` applies
+    at 6 x 256, the largest and the mean difference each at most 3 times
+    the CPU float32 round's own distance from the float64 round."""
+    import dataclasses
+
+    from kimera_multi_tpu_torch.core import rng, stiefel
+    from kimera_multi_tpu_torch.io import synthetic
+    from kimera_multi_tpu_torch.solve import pgo, rbcd
+
+    g = synthetic.multi_robot_graph(seed=7, n_robots=3, n_poses=64,
+                                    outlier_ratio=0.2, n_intra_lc=8,
+                                    n_inter_lc=8, device="cpu")
+    p0 = pgo.init_from_odometry(g.edges, 3, 64)
+    ylift = stiefel.random_lifting_matrix(
+        rng.derive(rng.base_key(0), rng.Stream.LIFTING), 5, 3)
+    Y0 = rbcd.lift_params(p0, ylift, 3, 64)
+    cfg = rbcd.RbcdConfig()
+    outs = []
+    for d, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                  (dev, torch.float32), (dev, torch.float32)):
+        edges = dataclasses.replace(g.edges.to(d), **{
+            f: getattr(g.edges, f).to(d, dt)
+            for f in ("R", "t", "kappa", "tau")})
+        buckets = rbcd.bucket_edges(edges, 3, 64)
+        w = torch.ones(edges.capacity, dtype=dt, device=d)
+        act = torch.ones(3, dtype=torch.bool, device=d)
+        outs.append(rbcd.rbcd_round_reference(Y0.to(d, dt), act, edges, w,
+                                              cfg, 64, buckets).cpu())
+    Y64, cpu, card, card2 = outs
+    assert torch.equal(card, card2)
+    np.testing.assert_allclose(card.numpy(), cpu.numpy(), rtol=0, atol=1e-5)
+    d = (card - cpu).abs()
+    e = (cpu.double() - Y64).abs()
+    assert float(d.max()) <= 3 * float(e.max())
+    assert float(d.mean()) <= 3 * float(e.mean())

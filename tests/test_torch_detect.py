@@ -24,6 +24,11 @@ from kimera_multi_tpu_torch.frontend import batched as tb, dlc as td, lcd as tl
 from kimera_multi_tpu_torch.frontend import vocab as tv
 from kimera_multi_tpu_torch.io import sim_world as tw
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _synth_bows(R, T, W, n_words=400, seed=0):
     """Packed BoW streams whose consecutive frames share half their words

@@ -37,6 +37,11 @@ from kimera_multi_tpu.kernels import fivept as jf, soa as jsoa
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
 from kimera_multi_tpu_torch.kernels import _build, fivept as tf, soa as tsoa
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 S = 8
 H = 64
 C = 2

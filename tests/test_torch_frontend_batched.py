@@ -19,6 +19,7 @@ compared exactly through `status`."""
 
 import numpy as np
 import pytest
+import torch
 
 from kimera_multi_tpu.frontend import batched as jb, dlc as jd
 from kimera_multi_tpu.frontend import vocab as jv
@@ -26,6 +27,11 @@ from kimera_multi_tpu.io import sim_world as jw
 from kimera_multi_tpu_torch import convert
 from kimera_multi_tpu_torch.frontend import batched as tb
 from kimera_multi_tpu_torch.frontend import vocab as tv
+
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,11 @@ import torch
 from kimera_multi_tpu.kernels import gather as jg, ransac as jr
 from kimera_multi_tpu_torch.kernels import gather as tg, ransac as tr
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _inputs(k, C=3, K=75, H=40, seed=0):
     rs = np.random.default_rng(seed)

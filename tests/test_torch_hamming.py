@@ -12,6 +12,11 @@ import torch
 from kimera_multi_tpu.kernels import hamming as jh
 from kimera_multi_tpu_torch.kernels import hamming as th
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _pairs(case, C=3, Kq=70, Kt=96, seed=0):
     """Descriptor pairs with true matches (3 flipped bits), clutter, and

@@ -18,6 +18,11 @@ from kimera_multi_tpu.kernels import bow as jbow
 from kimera_multi_tpu_torch.frontend import bow_db as tdb, lcd as tl
 from kimera_multi_tpu_torch.kernels import bow as tbow
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _tied_scores():
     """Rows of normalized scores (N = 40) with ties of every kind."""

@@ -23,6 +23,11 @@ from kimera_multi_tpu_torch.core import rng as trng
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
 from kimera_multi_tpu_torch.kernels import ransac as tr, score as ts
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 C, K, H = 4, 80, 48
 # squared Sampson threshold of the mono tests: the 3e-4 rad bearing noise
 # puts inliers near 1e-7, so 1e-5 keeps every inlier a factor ~100 (and the

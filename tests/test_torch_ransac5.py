@@ -29,6 +29,11 @@ from kimera_multi_tpu_torch.io import synthetic
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
 from kimera_multi_tpu_torch.kernels import ransac as tr
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 N_HYP = 500
 SEEDS = np.arange(4)
 

@@ -10,6 +10,11 @@ import torch
 from kimera_multi_tpu.core import rng as jrng
 from kimera_multi_tpu_torch.core import rng as trng
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _jax_words(key):
     return np.asarray(jax.random.key_data(key)).astype(np.int64)

@@ -16,6 +16,11 @@ from kimera_multi_tpu.kernels import score as js
 from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
 from kimera_multi_tpu_torch.kernels import score as ts
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 def _scene(C=3, K=75, H=37, seed=0):
     """Per candidate: a rigid pair (p, q = R p + t for 60% of the points,

@@ -21,6 +21,11 @@ from kimera_multi_tpu_torch.io.synthetic import _so3_exp_np
 from kimera_multi_tpu_torch.kernels import (linalg as tl, minimal as tm,
                                             soa as tsoa)
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

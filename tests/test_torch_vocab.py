@@ -20,6 +20,11 @@ from kimera_multi_tpu_torch import convert
 from kimera_multi_tpu_torch.frontend import vocab as tv
 from kimera_multi_tpu_torch.kernels import bow as bow_kernel
 
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core each oversubscribes
+# the machine
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def world_vocabs():
