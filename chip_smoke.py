@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives five paths:
+(`check_fivept`). Then it drives six paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -43,7 +43,19 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     then one RBCD round): launches counted, no plain version allowed to
     run, each kernel call of the counted step held exactly against its
     plain version on the tensors it was given, timed, and held against
-    the same step on the CPU.
+    the same step on the CPU;
+  * the `sim` run of the port's CLI, `cli.run.main(["--mode", "sim",
+    "--robots", "6", "--steps", "1024", "--features", "704", "--seed",
+    "0", ...])`: world, vocabulary, the front-end above, the pose graph
+    (29,110 edges), PCM and 40 GNC rounds of Gauss-Newton, the
+    reference-schema logs and APE; then again with submaps of 10
+    keyframes. Checked: the log tree's rows and headers, every robot
+    placed by PCM, APE below odometry's, the back-end rerun on the CPU
+    from the same loops deciding the same (consensus, frame_ok, loop
+    closures under 0.5; APE within 5 %), two card runs of the back-end
+    bit-identical, the kernel launches inside main() equal to the
+    front-end path's with no plain version run, and the submap run's APE
+    below max(2 x the keyframe level's, 0.08 m).
 
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
@@ -62,11 +74,14 @@ it are JSON objects {"kernels": [...]} and {"stages": {...}}.
 
 also traces one verification chunk of the default configuration, a
 window of detection steps, one RBCD round at 6 x 2048 and at 6 x 256, and
-one `entry()` step with torch.profiler and prints {"profile": ...},
-{"profile_detect": ...}, {"profile_rbcd": ...}, {"profile_rbcd_6x256":
-...} and {"profile_slam_step": ...} lines: device kernels launched per
-chunk (per step, per round), the device's busy time and idle share, and
-the kernels that take most of the device time; and {"profile_rbcd_parts":
+one `entry()` step and one Gauss-Newton call of the `sim` back-end at
+full size (8 x 40 CG steps) with torch.profiler and prints {"profile":
+...}, {"profile_detect": ...}, {"profile_rbcd": ...},
+{"profile_rbcd_6x256": ...}, {"profile_slam_step": ...} and
+{"profile_robust_pgo": ...} lines: device kernels launched per chunk
+(per step, per round, per call; per CG step for the last), the device's
+busy time and idle share, and the kernels that take most of the device
+time; and {"profile_rbcd_parts":
 ...}: the parts of a round at 6 x 2048 (preconditioner, gradient, one CG
 step, global step, its retraction), each with its kernels by name, host
 time and the aten operations it runs.
@@ -1337,25 +1352,48 @@ def profile_rbcd_parts(s) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_tripwire():
+    """While open, every plain version of a kernel appends its name to the
+    yielded list when it runs (the card paths must run none)."""
+    from kimera_multi_tpu_torch.kernels import fivept, gather, hamming, score
+
+    plain = [(hamming, "knn2_lowe_match"), (hamming, "_pair_top2_ref"),
+             (gather, "sample_gather_perm_t_ref"),
+             (gather, "sample_gather_t_ref"), (gather, "permute_cols_ref"),
+             (fivept, "_fivept_models_ref"), (fivept, "presel_counts_ref"),
+             (score, "rigid_counts_ref"), (score, "essential_counts_ref")]
+    ran: list = []
+    saved = [getattr(m, n) for m, n in plain]
+
+    def tripwire(name, fn):
+        def wrapped(*a, **k):
+            ran.append(name)
+            return fn(*a, **k)
+        return wrapped
+
+    try:
+        for (m, n), fn in zip(plain, saved):
+            setattr(m, n, tripwire(n, fn))
+        yield ran
+    finally:
+        for (m, n), fn in zip(plain, saved):
+            setattr(m, n, fn)
+
+
 def entry_phase(dev, profile: bool, check) -> dict:
     """(c) entry()'s fused step on the card: launches counted, no plain
     version run, each kernel call of the counted step held exactly against
     its plain version on the tensors it was given (`check`), timed warm,
     and the step held against the step on the CPU."""
     from kimera_multi_tpu_torch import entry
-    from kimera_multi_tpu_torch.kernels import (_build, fivept, gather,
-                                                hamming, score)
+    from kimera_multi_tpu_torch.kernels import _build, gather, hamming, score
 
     step, args = entry.entry()
     if not all(a.device.type == "cuda" for a in args):
         fail("entry() did not put its inputs on the card")
     step(*args)  # warm-up
     torch.cuda.synchronize()
-    plain = [(hamming, "knn2_lowe_match"), (hamming, "_pair_top2_ref"),
-             (gather, "sample_gather_perm_t_ref"),
-             (gather, "sample_gather_t_ref"), (gather, "permute_cols_ref"),
-             (fivept, "_fivept_models_ref"), (fivept, "presel_counts_ref"),
-             (score, "rigid_counts_ref"), (score, "essential_counts_ref")]
     # the wrappers of the step's kernels, and each one's plain version
     wrappers = {
         "pair_top2": (hamming, "_pair_top2",
@@ -1368,15 +1406,8 @@ def entry_phase(dev, profile: bool, check) -> dict:
         "essential_counts": (score, "essential_counts",
                              lambda *a: score.essential_counts_ref(*a)),
     }
-    ran, calls = [], []
-    saved = [getattr(m, n) for m, n in plain]
+    calls = []
     saved_w = {k: getattr(m, n) for k, (m, n, _) in wrappers.items()}
-
-    def tripwire(name, fn):
-        def wrapped(*a, **k):
-            ran.append(name)
-            return fn(*a, **k)
-        return wrapped
 
     def recorder(name, fn):
         def wrapped(*a):
@@ -1386,17 +1417,14 @@ def entry_phase(dev, profile: bool, check) -> dict:
         return wrapped
 
     try:
-        for (m, n), fn in zip(plain, saved):
-            setattr(m, n, tripwire(n, fn))
         for k, (m, n, _) in wrappers.items():
             setattr(m, n, recorder(k, saved_w[k]))
-        _build.reset_launches()
-        out = step(*args)
-        torch.cuda.synchronize()
-        launches = dict(_build.launches)
+        with plain_tripwire() as ran:
+            _build.reset_launches()
+            out = step(*args)
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
     finally:
-        for (m, n), fn in zip(plain, saved):
-            setattr(m, n, fn)
         for k, (m, n, _) in wrappers.items():
             setattr(m, n, saved_w[k])
     log(f"entry(): step launches {launches}; plain versions run: {ran}")
@@ -1451,6 +1479,233 @@ def entry_phase(dev, profile: bool, check) -> dict:
     return {"slam_step_ms": host_ms, "slam_step_event_ms": ev_ms,
             "slam_step_launches": launches,
             "slam_step_card_vs_cpu": dict(errs, cost_rel=cost_rel)}
+
+
+# ------------------------------------------------------------- sim run
+# the `sim` run of the port's CLI at the front-end run's size, nothing cut
+SIM_ARGS = ["--mode", "sim", "--robots", str(N_ROBOTS), "--steps",
+            str(N_FRAMES), "--features", str(K_FEAT), "--seed", "0"]
+SIM_SUBMAP = 10
+# gate (iv): each robot's APE translation RMSE, card against CPU
+SIM_APE_REL, SIM_APE_ABS = 0.05, 1e-3
+
+
+def sim_backend(edges, ppr: int, gnc_rounds: int):
+    """The `sim` run's back-end on `edges`, through the CLI's own
+    `_optimize_backend` (odometry initialization, then `robust_pgo`: PCM,
+    GN under GNC). Returns (params, weights, info)."""
+    import argparse
+
+    from kimera_multi_tpu_torch.cli import run
+
+    n_robots = int(edges.src_robot.max()) + 1
+    params, weights, _, info = run._optimize_backend(
+        argparse.Namespace(gnc_rounds=gnc_rounds), edges, n_robots, ppr,
+        time.time())
+    return params, weights, info
+
+
+def sim_apes(params, world, device) -> list:
+    """Each robot's APE (aligned, as the CLI's logs) of a keyframe-level
+    solution."""
+    from kimera_multi_tpu_torch.eval import ape
+
+    T = world.t_gt.shape[1]
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return [ape.ape(params.t[r * T:(r + 1) * T].to(device),
+                    params.R[r * T:(r + 1) * T].to(device), f(world.t_gt[r]),
+                    f(world.R_gt[r])) for r in range(world.t_gt.shape[0])]
+
+
+def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
+    """(f) the port's CLI, `cli.run.main(--mode sim)`, on make_world(6,
+    1024, 704, seed=0) with the defaults (40 GNC rounds, 8 GN x 40 CG
+    each), then once more with submaps of 10 keyframes. Gates: (i) every
+    robot's TUM file has 1024 rows, every CSV header is the port's
+    `io.logs` constant; (ii) PCM places every robot; (iii) each robot's
+    APE below its odometry-only APE; (iv) the back-end rerun on the CPU
+    from the same loops decides the same (consensus, frame_ok, loop
+    closures under 0.5) and each APE within 5 % (or 1 mm); (v) two card
+    runs of robust_pgo on the full graph give the same bits; (vi) the
+    kernel launches inside main() equal the front-end phase's, and no
+    plain version runs; (vii) with submaps, fewer optimized poses and
+    each APE below max(2 x the keyframe-level value, 0.08). Returns the
+    stage entries."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.cli import run
+    from kimera_multi_tpu_torch.core.containers import EDGE_ODOMETRY
+    from kimera_multi_tpu_torch.frontend.dlc import (
+        FrontendConfig, build_pose_graph_from_loops)
+    from kimera_multi_tpu_torch.io import logs, sim_world
+    from kimera_multi_tpu_torch.kernels import _build
+    from kimera_multi_tpu_torch.solve import pgo
+
+    tmp = tempfile.mkdtemp(prefix="kmt_sim_")
+    try:
+        log_dir = os.path.join(tmp, "keyframes")
+        with plain_tripwire() as ran:
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run.main(SIM_ARGS + ["--log-dir", log_dir])
+            torch.cuda.synchronize()
+            sim_ms = (time.perf_counter() - t) * 1e3
+            launches = dict(_build.launches)
+        st, be = out["stages"], out["backend"]
+        edges, T = be["edges"], N_FRAMES
+        n_edges = int(edges.valid.sum())
+        n_loops = len(out["loops"])
+        log(f"sim: main({' '.join(SIM_ARGS)}) in {sim_ms:.0f} ms: "
+            f"{out['frontend']['n_candidates']} candidates, {n_loops} loops, "
+            f"{n_edges} edges ({edges.capacity} slots); stages (s) {st}; "
+            f"kernel launches {launches}; plain versions run: {ran}")
+        # (vi)
+        if ran:
+            fail(f"sim: main() ran plain versions {ran}")
+        if launches != fe_launches:
+            fail(f"sim: main() launched {launches}, the front-end phase "
+                 f"{fe_launches}")
+        # (i)
+        headers = {"loop_closures.csv": logs.LOOP_CLOSURES_HEADER,
+                   "kimera_distributed_keyframes.csv": logs.KEYFRAMES_HEADER,
+                   "lcd_attempts.csv": logs.LCD_ATTEMPTS_HEADER,
+                   "dpgo_log_0.csv": logs.DPGO_LOG_HEADER,
+                   "output_lcd_status.csv": logs.LCD_STATUS_HEADER}
+        for r in range(N_ROBOTS):
+            tums = glob.glob(os.path.join(
+                log_dir, f"robot{r}", "distributed",
+                "kimera_distributed_poses_tum_*.tum"))
+            rows = logs.read_tum(tums[0])[1] if len(tums) == 1 else None
+            if rows is None or len(rows) != T or not np.isfinite(rows).all():
+                fail(f"sim: robot {r}'s TUM files {tums} do not hold {T} "
+                     f"finite rows")
+            for name, h in headers.items():
+                path = glob.glob(os.path.join(log_dir, f"robot{r}", "*",
+                                              name))
+                if len(path) != 1 or open(path[0]).readline().strip() != h:
+                    fail(f"sim: robot {r}'s {name} lacks the header {h}")
+        # (ii)
+        if not bool(be["frame_ok"].all()):
+            fail(f"sim: PCM left robots unplaced: {be['frame_ok'].tolist()}")
+        # (iii)
+        world = sim_world.make_world(n_robots=N_ROBOTS, n_steps=T,
+                                     features_per_kf=K_FEAT, seed=0)
+        R_kf, t_kf = run._odometry_poses(world)
+        odo = sim_apes(pgo.PgoParams(
+            R=torch.from_numpy(R_kf.reshape(-1, 3, 3)),
+            t=torch.from_numpy(t_kf.reshape(-1, 3))), world, dev)
+        ape = [out["ape"][r].rmse_trans for r in range(N_ROBOTS)]
+        ape_odo = [a.rmse_trans for a in odo]
+        log(f"sim: APE translation RMSE (m) per robot {ape}; odometry only "
+            f"{ape_odo}")
+        if not all(a < o for a, o in zip(ape, ape_odo)):
+            fail("sim: a robot's APE is not below its odometry-only APE")
+        # (v)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p2, w2, i2 = sim_backend(edges, T, 40)
+        torch.cuda.synchronize()
+        backend_ms = (time.perf_counter() - t) * 1e3
+        same = (torch.equal(p2.R, be["params"].R)
+                and torch.equal(p2.t, be["params"].t)
+                and torch.equal(w2, be["weights"]))
+        log(f"sim: a second card run of the back-end ({backend_ms:.0f} ms) "
+            f"bit-identical: {same}")
+        if not same:
+            fail("sim: two card runs of robust_pgo differ")
+        # (iv)
+        lc = (edges.valid & (edges.etype != EDGE_ODOMETRY)).cpu()
+        t = time.perf_counter()
+        e_cpu = build_pose_graph_from_loops(
+            out["loops"], world.R_odo, world.t_odo, FrontendConfig(),
+            device="cpu")
+        pc, wc, ic = sim_backend(e_cpu, T, 40)
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        ape_cpu = [a.rmse_trans for a in sim_apes(pc, world, "cpu")]
+        under = lc & (be["weights"].cpu() < 0.5)
+        under_cpu = lc & (wc < 0.5)
+        cons_eq = torch.equal(be["consensus"].cpu(), ic["consensus"])
+        ok_eq = torch.equal(be["frame_ok"].cpu(), ic["frame_ok"])
+        ape_ok = all(abs(a - c) <= max(SIM_APE_REL * c, SIM_APE_ABS)
+                     for a, c in zip(ape, ape_cpu))
+        log(f"sim: the back-end on the CPU from the same loops in "
+            f"{cpu_ms:.0f} ms: consensus equal {cons_eq} "
+            f"({int(ic['consensus'].sum())} edges), frame_ok equal {ok_eq}, "
+            f"loop closures under 0.5 {int(under.sum())} card / "
+            f"{int(under_cpu.sum())} CPU (equal "
+            f"{torch.equal(under, under_cpu)}); APE on the CPU {ape_cpu} "
+            f"(limit {SIM_APE_REL:g} relative or {SIM_APE_ABS:g} m)")
+        if not (cons_eq and ok_eq and torch.equal(under, under_cpu)
+                and ape_ok):
+            fail("sim: the card's back-end decides otherwise than the CPU's")
+        res = {
+            "sim_world": f"make_world({N_ROBOTS}, {T}, {K_FEAT}, seed=0)",
+            "sim_ms": sim_ms, "sim_frontend_ms": st["frontend_s"] * 1e3,
+            "build_pose_graph_ms": st["build_pose_graph_s"] * 1e3,
+            "pcm_ms": st["pcm_s"] * 1e3,
+            "robust_pgo_ms": st["robust_pgo_s"] * 1e3,
+            "sim_logs_ms": st["logs_s"] * 1e3,
+            "sim_backend_second_run_ms": backend_ms,
+            "pcm_ms_second_run": i2["pcm_s"] * 1e3,
+            "robust_pgo_ms_second_run": i2["robust_pgo_s"] * 1e3,
+            "sim_backend_cpu_ms": cpu_ms,
+            "sim_edges": n_edges, "sim_loops": n_loops,
+            "sim_consensus": int(be["consensus"].sum()),
+            "sim_under_05": int(under.sum()),
+            "ape_rmse_trans": ape, "ape_rmse_trans_max": max(ape),
+            "ape_rmse_trans_mean": float(np.mean(ape)),
+            "ape_rmse_trans_cpu": ape_cpu,
+            "odometry_ape_rmse_trans": ape_odo,
+            "odometry_ape_rmse_trans_mean": float(np.mean(ape_odo)),
+            "sim_launches": launches,
+        }
+        if profile:
+            from kimera_multi_tpu_torch.solve.incidence import edge_incidence
+
+            inc = edge_incidence(edges, T, N_ROBOTS * T)
+            gn = lambda g, c: pgo.gauss_newton(
+                be["params"], edges, be["weights"], T, gn_iters=g,
+                cg_iters=c, inc=inc)
+            gn(8, 40)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gn(8, 40)
+            torch.cuda.synchronize()
+            gn_ms = (time.perf_counter() - t) * 1e3
+            prof = profile_call(lambda: gn(8, 40), gn_ms, "call")
+            k1 = profile_call(lambda: gn(1, 1), 1.0, "call")
+            k2 = profile_call(lambda: gn(1, 2), 1.0, "call")
+            prof["device_kernels_per_cg_step"] = (
+                k2.get("device_kernels_per_call", 0)
+                - k1.get("device_kernels_per_call", 0))
+            prof["aten_ops_per_cg_step"] = (
+                sum(aten_ops(lambda: gn(1, 2)).values())
+                - sum(aten_ops(lambda: gn(1, 1)).values()))
+            print(json.dumps({"profile_robust_pgo": prof}), flush=True)
+
+        # (vii) submaps of SIM_SUBMAP keyframes
+        out_s = run.main(SIM_ARGS + ["--submap-size", str(SIM_SUBMAP),
+                                     "--log-dir", os.path.join(tmp, "sub")])
+        ape_s = [out_s["ape"][r].rmse_trans for r in range(N_ROBOTS)]
+        log(f"sim, submaps of {SIM_SUBMAP}: {out_s['n_opt_poses']} optimized "
+            f"poses for {out_s['n_keyframes']} keyframes; robust_pgo "
+            f"{out_s['stages']['robust_pgo_s'] * 1e3:.0f} ms; APE {ape_s} "
+            f"(limit max(2 x keyframe level, 0.08))")
+        if not out_s["n_opt_poses"] < out_s["n_keyframes"]:
+            fail("sim: submaps did not reduce the optimized poses")
+        if not all(a < max(2.0 * k, 0.08) for a, k in zip(ape_s, ape)):
+            fail("sim: a robot's APE with submaps is out of the keyframe "
+                 "level's class")
+        res.update(robust_pgo_ms_submap10=out_s["stages"]["robust_pgo_s"]
+                   * 1e3, sim_submap10_opt_poses=out_s["n_opt_poses"],
+                   ape_rmse_trans_submap10=ape_s)
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> None:
@@ -2275,6 +2530,8 @@ def main() -> None:
     # ------------------------------------------------------------------ 8
     stages.update(backend_phase(dev, profile))
     stages.update(entry_phase(dev, profile, check))
+    # ------------------------------------------------------------------ 9
+    stages.update(sim_phase(dev, profile, stages["fe_launches"]))
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

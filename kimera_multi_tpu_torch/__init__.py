@@ -16,10 +16,16 @@ Layer map (what is ported so far):
              linear algebra; CUDA C++ under csrc/
   frontend/  BoW vocabulary and database, islands and detection,
              FrontendConfig / VerifiedLC, the batched front-end
-             (make_detector, make_verifier, BatchedFrontend)
-  solve/     Gauss-Newton PGO, rank-lifted RBCD rounds, GNC-TLS weights
+             (make_detector, make_verifier, BatchedFrontend), the pose
+             graph from loops, submap coarsening
+  solve/     Gauss-Newton PGO, rank-lifted RBCD rounds, GNC-TLS weights,
+             PCM frame initialization, robust PGO, chordal initialization,
+             deterministic sums onto poses (incidence tables)
   io/        synthetic keyframe stores, candidate pairs, multi-robot pose
-             graphs and the simulated multi-robot world (numpy)
+             graphs and the simulated multi-robot world (numpy);
+             reference-schema logs
+  eval/      absolute pose error
+  cli/       run.py: the `sim` run end to end
   convert    state handed over from the JAX package as numpy
   entry      the fused SLAM step: verification, then one RBCD round
 """

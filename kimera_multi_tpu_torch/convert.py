@@ -3,9 +3,10 @@
 The JAX package hands its state over as numpy arrays and plain values
 (this module imports neither jax nor that package): the keyframe stores,
 the raw words of a threefry key (`jax.random.key_data(key)`), its
-`FrontendConfig`, its BoW `Vocabulary`, and the back-end's pose graph,
-SE(3) parameters, lifted blocks and GNC state. What comes out computes
-the same thing in the port.
+`FrontendConfig`, its BoW `Vocabulary`, the back-end's pose graph,
+SE(3) parameters, lifted blocks and GNC state, loop-closure records and
+submap assignments. What comes out computes the same thing in the port;
+loop-closure records also go the other way, as numpy rows.
 """
 
 from __future__ import annotations
@@ -121,3 +122,54 @@ def gnc_state_from_numpy(mu, weights, barc2, outer_iter,
     return GncState(mu=f32(mu), weights=f32(weights), barc2=f32(barc2),
                     outer_iter=torch.tensor(
                         np.asarray(outer_iter, np.int32))).to(device)
+
+
+_LOOP_INT_FIELDS = ("robot_a", "frame_a", "robot_b", "frame_b",
+                    "mono_inliers", "stereo_inliers", "status")
+
+
+def loops_to_numpy(loops) -> dict:
+    """Loop-closure records (`VerifiedLC`, the port's or the JAX
+    package's: the same fields) -> one numpy array per field: int32
+    indices, counts and status, (n, 3, 3) / (n, 3) float32 poses,
+    float64 BoW scores, bool acceptance."""
+    loops = list(loops)
+    out = {f: np.asarray([getattr(lc, f) for lc in loops], np.int32)
+           for f in _LOOP_INT_FIELDS}
+    out["R"] = np.asarray([np.asarray(lc.R, np.float32) for lc in loops],
+                          np.float32).reshape(-1, 3, 3)
+    out["t"] = np.asarray([np.asarray(lc.t, np.float32) for lc in loops],
+                          np.float32).reshape(-1, 3)
+    out["bow_score"] = np.asarray([lc.bow_score for lc in loops],
+                                  np.float64)
+    out["accepted"] = np.asarray([lc.accepted for lc in loops], bool)
+    return out
+
+
+def loops_from_numpy(rows: dict, record=None) -> list:
+    """The arrays of `loops_to_numpy` -> a list of records, each built as
+    `record(**fields)` with plain ints, floats and bools (the port's
+    `VerifiedLC` unless another record type with the same fields is
+    given)."""
+    from .frontend.dlc import VerifiedLC
+
+    record = record or VerifiedLC
+    return [record(**{f: int(rows[f][i]) for f in _LOOP_INT_FIELDS},
+                   R=rows["R"][i], t=rows["t"][i],
+                   bow_score=float(rows["bow_score"][i]),
+                   accepted=bool(rows["accepted"][i]))
+            for i in range(len(rows["status"]))]
+
+
+def submap_assignment_from_numpy(submap_of_kf, anchor_kf, n_submaps,
+                                 R_in_submap, t_in_submap, device="cuda"):
+    """The fields of the JAX package's `SubmapAssignment` -> the port's,
+    on `device`."""
+    from .frontend.submap import SubmapAssignment
+
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=device)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return SubmapAssignment(
+        submap_of_kf=i32(submap_of_kf), anchor_kf=i32(anchor_kf),
+        n_submaps=int(n_submaps), R_in_submap=f32(R_in_submap),
+        t_in_submap=f32(t_in_submap))

@@ -7,6 +7,8 @@ versions run only for tensors on the CPU.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 
@@ -35,3 +37,11 @@ def resolve_device(device) -> torch.device:
             "device='cuda' was asked for but no CUDA device is available; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def synced_clock(device) -> float:
+    """`time.perf_counter()` once the work queued on `device` is done (a
+    host clock read on a card must wait for it)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()

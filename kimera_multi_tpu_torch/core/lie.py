@@ -146,16 +146,33 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     return torch.where(q[..., 3:4] < 0.0, -q, q)
 
 
+def mat3_mul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for (..., 3, 3) blocks as separate products and sums in a
+    fixed order, ((a0 b0 + a1 b1) + a2 b2): the same bits on the card and
+    on the CPU (a batched matmul on the card contracts into fused
+    multiply-adds; torch's CPU matmul of 3 x 3 blocks rounds as this
+    does). For values that decide something on both devices."""
+    return ((A[..., :, 0:1] * B[..., 0:1, :] + A[..., :, 1:2] * B[..., 1:2, :])
+            + A[..., :, 2:3] * B[..., 2:3, :])
+
+
+def mat3_vec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ v for (..., 3, 3) and (..., 3), in `mat3_mul`'s fixed order."""
+    return ((A[..., :, 0] * v[..., 0:1] + A[..., :, 1] * v[..., 1:2])
+            + A[..., :, 2] * v[..., 2:3])
+
+
 def se3_compose(R1, t1, R2, t2):
-    """(R1, t1) * (R2, t2) = (R1 R2, R1 t2 + t1)."""
-    return R1 @ R2, torch.einsum("...ij,...j->...i", R1, t2) + t1
+    """(R1, t1) * (R2, t2) = (R1 R2, R1 t2 + t1), in `mat3_mul`'s fixed
+    order (same bits on every device)."""
+    return mat3_mul(R1, R2), mat3_vec(R1, t2) + t1
 
 
 def se3_inverse(R: torch.Tensor, t: torch.Tensor):
-    """Inverse of the rigid transform x -> R x + t.
-    R (..., 3, 3), t (..., 3)."""
+    """Inverse of the rigid transform x -> R x + t, in `mat3_mul`'s fixed
+    order. R (..., 3, 3), t (..., 3)."""
     Rt = R.transpose(-1, -2)
-    return Rt, -torch.einsum("...ij,...j->...i", Rt, t)
+    return Rt, -mat3_vec(Rt, t)
 
 
 def se3_between(Ra, ta, Rb, tb):

@@ -40,7 +40,7 @@ from ..core.containers import (
 )
 from ..kernels import bow as bow_kernel, gather, hamming, ransac
 from . import lcd as lcd_mod, vocab as vocab_mod
-from .dlc import FrontendConfig, VerifiedLC
+from .dlc import FrontendConfig, VerifiedLC, build_pose_graph_from_loops
 
 
 class DetectOutputs(NamedTuple):
@@ -417,3 +417,10 @@ class BatchedFrontend:
                                query_robots=query_robots)
         return self.verify_candidates(descriptors, bearings, landmarks,
                                       obs_valid)
+
+    def build_pose_graph(self, R_odo, t_odo, edge_capacity=None):
+        """Odometry + the accepted loops as one PoseGraphEdges on the
+        front-end's device (`dlc.build_pose_graph_from_loops`)."""
+        return build_pose_graph_from_loops(
+            self.loops, R_odo, t_odo, self.cfg, edge_capacity,
+            device=self.device)

@@ -22,13 +22,14 @@ and h = 2 cost(D).
 Reductions onto poses are deterministic. The JAX package scatter-adds
 the slots of its one concatenated src+dst gather onto the poses; a float
 `index_add_` on the card is an atomic whose result depends on the order
-the slots arrive in. Here the slots that touch each own pose are listed
-on the host, in increasing slot order, as a padded (robots, poses, D)
-table; a reduction gathers along it and sums over the fixed D axis. So
-two runs on the card give the same bits. The bucketed path builds its
-table once per graph (`EdgeBuckets.inc`, at `bucket_edges` time) and
-reads nothing back to the host inside a round; the masked O(E_total)
-path builds its table (`masked_incidence`) from the edges on each call.
+the slots arrive in. Here (`incidence.py`) the slots that touch each
+own pose are listed on the host, in increasing slot order, as a padded
+(robots, poses, D) table; a reduction gathers along it and sums over the
+fixed D axis. So two runs on the card give the same bits. The bucketed
+path builds its table once per graph (`EdgeBuckets.inc`, at
+`bucket_edges` time) and reads nothing back to the host inside a round;
+the masked O(E_total) path builds its table (`masked_incidence`) from
+the edges on each call.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ import torch
 
 from ..core import stiefel
 from ..core.containers import PoseGraphEdges
+from .incidence import incidence_np as _incidence_np
+from .incidence import reduce_onto_poses as _reduce_onto_poses
 from .pgo import PgoParams
 
 _EPS = 1e-12
@@ -63,31 +66,6 @@ class EdgeBuckets(NamedTuple):
     kappa: torch.Tensor  # (R, Em)
     tau: torch.Tensor  # (R, Em)
     inc: torch.Tensor  # (R, P, D) int64
-
-
-def _incidence_np(rob2: np.ndarray, idx2: np.ndarray, ok2: np.ndarray,
-                  robots, n_poses: int) -> np.ndarray:
-    """Host: for each robot of `robots` (row b: robot robots[b]), the slots
-    s with ok2[b, s] & rob2[b, s] == robots[b] grouped by pose idx2[b, s],
-    in increasing s, as an (R, n_poses, D) table padded with S (the
-    number of slots)."""
-    n_rows, S = rob2.shape
-    groups = []
-    for b, r in enumerate(robots):
-        s = np.nonzero(ok2[b] & (rob2[b] == r))[0]
-        p = idx2[b, s].astype(np.int64)
-        if len(p) and (p.min() < 0 or p.max() >= n_poses):
-            raise ValueError(f"pose index outside [0, {n_poses})")
-        order = np.argsort(p, kind="stable")
-        groups.append((s[order], p[order]))
-    D = max([1] + [int(np.bincount(p, minlength=1).max())
-                   for _, p in groups if len(p)])
-    table = np.full((n_rows, n_poses, D), S, np.int64)
-    for b, (s, p) in enumerate(groups):
-        if len(p):
-            first = np.searchsorted(p, p, side="left")
-            table[b, p, np.arange(len(p)) - first] = s
-    return table
 
 
 def bucket_edges(edges: PoseGraphEdges, n_robots: int, poses_per_robot: int,
@@ -259,21 +237,6 @@ def _gather_own(blk: _Block, V):
     rows = torch.arange(B, device=V.device)[:, None]
     g = V.reshape(B * N, *V.shape[2:])[rows * N + blk.idx2]
     return torch.where(blk.own2[..., None, None], g, 0.0)
-
-
-def _reduce_onto_poses(contrib: torch.Tensor, inc: torch.Tensor,
-                       n_poses: int) -> torch.Tensor:
-    """Sum slot contributions (B, 2S, ...) onto own poses along the
-    incidence table (B, P, D): a gather, then a sum over the fixed D
-    axis. Returns (B, n_poses, ...)."""
-    B, P, D = inc.shape
-    if P != n_poses:
-        raise ValueError(f"incidence table covers {P} poses, blocks hold "
-                         f"{n_poses}")
-    pad = torch.zeros_like(contrib[:, :1])
-    padded = torch.cat([contrib, pad], dim=1)
-    rows = torch.arange(B, device=inc.device)[:, None, None]
-    return torch.sum(padded[rows, inc], dim=2)
 
 
 def _slot_gradient(blk: _Block, Yg):

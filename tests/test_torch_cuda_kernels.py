@@ -613,3 +613,34 @@ def test_rbcd_round_deterministic_and_equal_to_cpu(dev):
     e = (cpu.double() - Y64).abs()
     assert float(d.max()) <= 3 * float(e.max())
     assert float(d.mean()) <= 3 * float(e.mean())
+
+
+def test_robust_pgo_deterministic_and_equal_to_cpu(dev):
+    """`robust.robust_pgo` (PCM, then Gauss-Newton under GNC with its sums
+    onto poses along an incidence table) on tests/test_chordal_pcm.py's
+    graph (3 robots x 32 poses, 40 % outliers), 3 GNC rounds: two card
+    runs give the same bits, and the card decides as the CPU does (PCM
+    consensus and frame_ok equal, the same loop closures under weight
+    0.5; poses within 1e-4)."""
+    from kimera_multi_tpu_torch.io import synthetic
+    from kimera_multi_tpu_torch.solve import pgo, robust
+
+    g = synthetic.multi_robot_graph(seed=11, n_robots=3, n_poses=32,
+                                    outlier_ratio=0.4, n_intra_lc=4,
+                                    n_inter_lc=8, device="cpu")
+    outs = []
+    for d in ("cpu", dev, dev):
+        e = g.edges.to(d)
+        p0 = pgo.init_from_odometry(e, 3, 32)
+        info = {}
+        p, s = robust.robust_pgo(p0, e, 32, gnc_outer_iters=3, info=info)
+        outs.append((p.R.cpu(), p.t.cpu(), s.weights.cpu(),
+                     info["consensus"].cpu(), info["frame_ok"].cpu()))
+    cpu, card, card2 = outs
+    for a, b in zip(card, card2):
+        assert torch.equal(a, b)
+    assert torch.equal(card[3], cpu[3]) and torch.equal(card[4], cpu[4])
+    lc = (g.edges.valid & (g.edges.etype != 1))
+    assert torch.equal(lc & (card[2] < 0.5), lc & (cpu[2] < 0.5))
+    np.testing.assert_allclose(card[0].numpy(), cpu[0].numpy(), atol=1e-4)
+    np.testing.assert_allclose(card[1].numpy(), cpu[1].numpy(), atol=1e-4)

@@ -200,7 +200,9 @@ def test_port_imports_no_jax():
         "          'frontend.lcd', 'frontend.vocab', 'io.sim_world',\n"
         "          'core.containers', 'core.lie', 'core.stiefel',\n"
         "          'io.synthetic', 'solve.pgo', 'solve.rbcd',\n"
-        "          'solve.gnc', 'entry'):\n"
+        "          'solve.gnc', 'entry', 'solve.pcm', 'solve.robust',\n"
+        "          'solve.chordal', 'solve.incidence', 'frontend.submap',\n"
+        "          'eval.ape', 'io.logs', 'cli.run'):\n"
         "    assert 'kimera_multi_tpu_torch.' + m in new, m\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
