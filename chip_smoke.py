@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives six paths:
+(`check_fivept`). Then it drives seven paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -56,6 +56,15 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     bit-identical, the kernel launches inside main() equal to the
     front-end path's with no plain version run, and the submap run's APE
     below max(2 x the keyframe level's, 0.08 m).
+  * the `vio-sim` run of the port's CLI, `cli.run.main(["--mode",
+    "vio-sim", "--robots", "6", "--steps", "30", "--vio-width", "640",
+    "--vio-height", "480", "--vio-features", "300", "--vio-window", "25",
+    ...])`: a rendered stereo + IMU sequence, one VIO pipeline per robot
+    (reject steps on K4, K8, K9), the front-end, robust PGO, logs, APE.
+    Checked (`vio_phase`): loops, APE, attitude, launches per reject
+    step, no plain version, one reject step's calls against their plain
+    versions, two card runs of a robot bit-identical, card vs CPU at the
+    JAX e2e test's size, the BoW weight span.
 
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
@@ -78,7 +87,8 @@ one `entry()` step and one Gauss-Newton call of the `sim` back-end at
 full size (8 x 40 CG steps) with torch.profiler and prints {"profile":
 ...}, {"profile_detect": ...}, {"profile_rbcd": ...},
 {"profile_rbcd_6x256": ...}, {"profile_slam_step": ...} and
-{"profile_robust_pgo": ...} lines: device kernels launched per chunk
+{"profile_robust_pgo": ...}, {"profile_vio_keyframe": ...} lines: device
+kernels launched per chunk
 (per step, per round, per call; per CG step for the last), the device's
 busy time and idle share, and the kernels that take most of the device
 time; and {"profile_rbcd_parts":
@@ -1708,6 +1718,404 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------- vio-sim run
+# the `vio-sim` run of the port's CLI at the reference envelope's widths
+# (640 x 480, 300 features, a 25-keyframe window; params/D455) with 6
+# robots; --steps (frames a robot processes: depth) is cut to fit the time
+VIO_STEPS = 30
+VIO_WIDTH, VIO_HEIGHT, VIO_FEATURES, VIO_WINDOW = 640, 480, 300, 25
+VIO_ARGS = ["--mode", "vio-sim", "--robots", str(N_ROBOTS), "--steps",
+            str(VIO_STEPS), "--vio-width", str(VIO_WIDTH), "--vio-height",
+            str(VIO_HEIGHT), "--vio-features", str(VIO_FEATURES),
+            "--vio-window", str(VIO_WINDOW), "--seed", "0"]
+# gate 6: tests/test_vio_sim_e2e.py's run (its size, GNC rounds and the
+# CLI's default widths), card against CPU; APE translation RMSE within the
+# JAX package's own tolerance between two back-ends
+VIO_SMALL_ARGS = ["--mode", "vio-sim", "--robots", "2", "--steps", "16",
+                  "--seed", "0", "--gnc-rounds", "15"]
+VIO_APE_DIFF = 0.15
+# attitude: the largest angle (rad) between a relative rotation of
+# consecutive keyframes and the ground truth's. The full-SE(3) APE is not
+# gated: its position-only alignment leaves the roll about a short,
+# nearly straight arc free, so it lands near 0.8 or near 2.0 from
+# millimetre differences (at 2 x 16 on the CPU, the JAX package 0.81 /
+# 0.89, the port with a float32 triangulation 0.81 / 1.99; VIO alone,
+# robot 0: the JAX package 1.99, that port 1.01). A keyframe whose
+# attitude misses the gravity
+# alignment shows here as a ~1.5 rad step.
+VIO_REL_ROT_MAX = 0.05
+# gate 5: frames of one robot's pipeline, run twice; gate 4 records the
+# reject step of this keyframe
+VIO_DET_FRAMES, VIO_RECORD_KF = 20, 5
+# kernel launches of one keyframe's reject step (8-point mono gate:
+# K4 at k = 8 twice, K9; Arun stereo gate: K4 at k = 3 twice, K8)
+VIO_REJECT_LAUNCHES = {"sample_gather_perm_t": 4, "rigid_counts": 1,
+                       "essential_counts": 1}
+# the kernels of the vio-sim path (K2 is on no path)
+VIO_PATH_KERNELS = ("pair_top2", "sample_gather_t", "sample_gather_perm_t",
+                    "permute_cols", "fivept_models", "presel_counts",
+                    "rigid_counts", "essential_counts")
+
+
+def vio_rel_rot_err(out) -> np.ndarray:
+    """Each robot's largest angle (rad) between the relative rotation of
+    two consecutive keyframes in the back-end's solution and in the
+    ground truth."""
+    G = np.asarray(out["gt"]["R"], np.float64)
+    R = out["backend"]["params"].R.cpu().double().numpy().reshape(G.shape)
+    rel = lambda M: np.einsum("rkji,rkjl->rkil", M[:, :-1], M[:, 1:])
+    D = np.einsum("rkji,rkjl->rkil", rel(G), rel(R))
+    # the angle from both the trace and the skew part (exact near 0)
+    cos = (np.trace(D, axis1=-2, axis2=-1) - 1.0) / 2.0
+    S = D - np.swapaxes(D, -1, -2)
+    sin = 0.5 * np.linalg.norm(np.stack(
+        [S[..., 2, 1], S[..., 0, 2], S[..., 1, 0]], -1), axis=-1)
+    return np.arctan2(sin, cos).max(axis=1)
+
+
+def vio_gate1(out, log_dir: str, n_robots: int, what: str) -> list:
+    """tests/test_vio_sim_e2e.py's gates on one vio-sim run: loops (and
+    inter-robot ones), each robot's APE translation RMSE under 0.5 m, the
+    log tree; the attitude (VIO_REL_ROT_MAX); and the BoW weight span of
+    gate 7. Returns (the APE results, the relative rotation errors)."""
+    import os
+
+    from kimera_multi_tpu_torch.io import logs
+
+    ape = [out["ape"][r] for r in range(n_robots)]
+    rot = vio_rel_rot_err(out)
+    log(f"vio-sim {what}: {out['n_keyframes']} keyframes, {out['n_loops']} "
+        f"loops ({out['n_inter_loops']} inter-robot); APE trans "
+        f"{[a.rmse_trans for a in ape]} full {[a.rmse_full for a in ape]}; "
+        f"largest relative rotation error (rad) {rot.tolist()} (limit "
+        f"{VIO_REL_ROT_MAX}); BoW weight span {out['bow_weight_span']:.4g} "
+        f"(limit 2^22)")
+    if out["n_loops"] < 1 or out["n_inter_loops"] < 1:
+        fail(f"vio-sim {what}: no (inter-robot) loop closure")
+    if not all(a.rmse_trans < 0.5 for a in ape):
+        fail(f"vio-sim {what}: a robot's APE translation RMSE >= 0.5 m")
+    if not (rot < VIO_REL_ROT_MAX).all():
+        fail(f"vio-sim {what}: a keyframe's attitude is off the ground "
+             f"truth's by {VIO_REL_ROT_MAX} rad or more")
+    if not out["bow_weight_span"] < 2.0 ** 22:
+        fail(f"vio-sim {what}: BoW weights span 2^22 or more: the float64 "
+             f"sums of detection may round")
+    lc = logs.read_csv(os.path.join(log_dir, "robot0", "distributed",
+                                    "loop_closures.csv"))
+    if "mono_inliers" not in lc:
+        fail(f"vio-sim {what}: loop_closures.csv lacks mono_inliers")
+    for r in range(n_robots):
+        if not os.path.isfile(os.path.join(log_dir, f"robot{r}", "single",
+                                           "output_lcd_status.csv")):
+            fail(f"vio-sim {what}: robot {r} has no output_lcd_status.csv")
+    return ape, rot
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """While open, obj.name is make(original)."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield orig
+    finally:
+        setattr(obj, name, orig)
+
+
+def vio_feed(vio, seq, k: int):
+    """Frame k of `seq` into `vio`, after the IMU samples since frame k-1.
+    Returns process_frame's result."""
+    lo = seq.timestamps[k - 1] if k else -np.inf
+    for i in np.nonzero((seq.imu_ts > lo)
+                        & (seq.imu_ts <= seq.timestamps[k]))[0]:
+        vio.add_imu(seq.imu_ts[i], seq.gyro[i], seq.accel[i])
+    return vio.process_frame(seq.timestamps[k], seq.left[k], seq.right[k])
+
+
+def vio_robot_run(dev, seq, cfg, frames: int, hooks=()):
+    """One robot's VioPipeline over the first `frames` frames of `seq`,
+    with `hooks` (context managers) open. Returns (pipeline, each
+    keyframe-making frame's time in ms)."""
+    from kimera_multi_tpu_torch.vio import pipeline
+
+    with contextlib.ExitStack() as stack:
+        for h in hooks:
+            stack.enter_context(h)
+        vio, ms = pipeline.VioPipeline(cfg, device=dev), []
+        for k in range(frames):
+            t = time.perf_counter()
+            if vio_feed(vio, seq, k) is not None:
+                ms.append((time.perf_counter() - t) * 1e3)
+    return vio, ms
+
+
+def vio_phase(dev, profile: bool, check) -> dict:
+    """(g) the port's CLI, `cli.run.main(--mode vio-sim)`, at 640 x 480,
+    300 features, window 25, 6 robots x VIO_STEPS frames. Gates: (1) loops
+    and inter-robot loops, each robot's APE translation RMSE < 0.5 m, the
+    log tree; (2) no plain version runs inside main(); (3) inside main(),
+    K4, K8 and K9 launch 4, 1 and 1 times per keyframe whose reject step
+    ran (>= 8 correspondences) besides the front-end's launches, and every
+    kernel of the path launches; (4) the K4, K8 and K9 calls of one
+    keyframe's reject step at full width equal their plain versions on
+    the same tensors; (5) two card runs of one robot's pipeline over 20
+    frames at full width give the same bits; (6) card and CPU at the JAX
+    e2e test's size both pass (1), each robot's translation APE within
+    0.15 m of the other's; (7) BoW weight span under 2^22 in every run.
+    (1) also bounds every relative rotation of consecutive keyframes
+    against the ground truth's (VIO_REL_ROT_MAX). Returns the stage
+    entries."""
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.cli import run
+    from kimera_multi_tpu_torch.frontend import batched
+    from kimera_multi_tpu_torch.io import render
+    from kimera_multi_tpu_torch.kernels import _build, gather, score
+    from kimera_multi_tpu_torch.vio import pipeline, tracking
+
+    tmp = tempfile.mkdtemp(prefix="kmt_vio_")
+    try:
+        # ---- the run, launches counted apart for the front-end ---------
+        fe_launches: dict = {}
+
+        def count_fe(orig):
+            def wrapped(self, *a, **k):
+                before = dict(_build.launches)
+                res = orig(self, *a, **k)
+                fe_launches.update({n: c - before[n] for n, c in
+                                    _build.launches.items()})
+                return res
+            return wrapped
+
+        log_dir = os.path.join(tmp, "full")
+        with patched(batched.BatchedFrontend, "process_all", count_fe), \
+                plain_tripwire() as ran:
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run.main(VIO_ARGS + ["--log-dir", log_dir])
+            torch.cuda.synchronize()
+            vio_sim_ms = (time.perf_counter() - t) * 1e3
+            launches = dict(_build.launches)
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        st = out["stages"]
+        n_rej = sum(s.n_corresp >= 8 for rl in out["rejection_logs"]
+                    for s in rl)
+        vio_launches = {n: c - fe_launches.get(n, 0)
+                        for n, c in launches.items()}
+        kf_ms = np.asarray(st["vio_frame_s"]) * 1e3
+        log(f"vio-sim: main({' '.join(VIO_ARGS)}) in {vio_sim_ms:.0f} ms; "
+            f"stages (s) { {k: v for k, v in st.items() if k != 'vio_frame_s'} }"
+            f"; keyframe ms mean {kf_ms.mean():.1f} p90 "
+            f"{np.percentile(kf_ms, 90):.1f}; launches {launches} (front-end "
+            f"{fe_launches}); {n_rej} reject steps; plain versions run: "
+            f"{ran}; peak {peak_mb:.0f} MB")
+        ape, rot = vio_gate1(out, log_dir, N_ROBOTS, "full width")  # 1, 7
+        if ran:                                                    # 2
+            fail(f"vio-sim: main() ran plain versions {ran}")
+        want = {n: VIO_REJECT_LAUNCHES.get(n, 0) * n_rej for n in launches}
+        if vio_launches != want:                                   # 3
+            fail(f"vio-sim: VIO launched {vio_launches}, expected {want} "
+                 f"for {n_rej} reject steps")
+        idle = [n for n in VIO_PATH_KERNELS if launches.get(n, 0) == 0]
+        if idle:
+            fail(f"vio-sim: kernels of the path never launched: {idle}")
+
+        # ---- one robot at full width: stages, recorded calls, bits -----
+        cfg = run.vio_sim_config(VIO_WIDTH, VIO_HEIGHT, VIO_FEATURES,
+                                 VIO_WINDOW)
+        seq = render.render_sequence(
+            render.make_scene(0, max(350, 4 * VIO_FEATURES)),
+            render.StereoRig(cfg.cam, VIO_HEIGHT, VIO_WIDTH, cfg.baseline),
+            n_frames=VIO_DET_FRAMES + 2, rate_hz=10.0, imu_rate_hz=100.0,
+            speed=0.6, yaw_rate=0.1, device=dev)
+        stage_s: dict = {}
+        nested = []
+
+        def timed(label):
+            def make(orig):
+                def wrapped(*a, **k):
+                    lab = "stereo_klt" if nested and label == "klt" else label
+                    nested.append(lab)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **k)
+                    finally:
+                        torch.cuda.synchronize()
+                        stage_s[lab] = stage_s.get(lab, 0.0) + (
+                            time.perf_counter() - t0)
+                        nested.pop()
+                return wrapped
+            return make
+
+        calls, rec = [], {"on": False, "n": 0}
+
+        def record_reject(orig):
+            def wrapped(*a, **k):
+                rec["on"] = rec["n"] == VIO_RECORD_KF
+                rec["n"] += 1
+                try:
+                    return orig(*a, **k)
+                finally:
+                    rec["on"] = False
+            return wrapped
+
+        def recorder(name):
+            def make(orig):
+                def wrapped(*a):
+                    got = orig(*a)
+                    if rec["on"]:
+                        calls.append((name, a, got))
+                    return got
+                return wrapped
+            return make
+
+        P = pipeline.VioPipeline
+        hooks = [patched(P, "_klt", timed("klt")),
+                 patched(P, "_stereo", timed("stereo")),
+                 patched(tracking, "gftt_detect", timed("gftt_refill")),
+                 patched(P, "_refill", timed("gftt_refill")),
+                 patched(pipeline.desc_mod, "describe", timed("describe")),
+                 patched(P, "_reject", timed("reject")),
+                 patched(P, "_preintegrate_buffer", timed("preintegrate")),
+                 patched(P, "_optimize_window", timed("smooth")),
+                 patched(P, "_reject", record_reject),
+                 patched(gather, "sample_gather_perm_t",
+                         recorder("sample_gather_perm_t")),
+                 patched(score, "rigid_counts", recorder("rigid_counts")),
+                 patched(score, "essential_counts",
+                         recorder("essential_counts"))]
+        vio1, _ = vio_robot_run(dev, seq, cfg, VIO_DET_FRAMES, hooks)
+        n_kf = len(vio1.keyframes)
+        stage_ms = {k: v / n_kf * 1e3 for k, v in stage_s.items()}
+        log(f"vio, one robot at full width: {n_kf} keyframes; ms a keyframe "
+            f"by stage (synchronised) {stage_ms}")
+        ref = {"sample_gather_perm_t": lambda d, p, o, inv:
+               gather.sample_gather_perm_t_ref(d, p, o),
+               "rigid_counts": score.rigid_counts_ref,
+               "essential_counts": score.essential_counts_ref}
+        n_calls = {n: sum(c[0] == n for c in calls) for n in ref}
+        if n_calls != VIO_REJECT_LAUNCHES:                         # 4
+            fail(f"vio: keyframe {VIO_RECORD_KF}'s reject step called "
+                 f"{n_calls}, expected {VIO_REJECT_LAUNCHES}")
+        log(f"vio: keyframe {VIO_RECORD_KF}'s reject step, each kernel call "
+            f"against its plain version on the same tensors (limit: exact "
+            f"equality)")
+        for name, a, got in calls:
+            check(name, got, ref[name](*a),
+                  f"VIO reject, {'x'.join(map(str, a[0].shape))}")
+        vio2, kf_ms2 = vio_robot_run(dev, seq, cfg, VIO_DET_FRAMES)
+        same = {f: all(np.array_equal(getattr(a, f), getattr(b, f))
+                       for a, b in zip(vio1.keyframes, vio2.keyframes))
+                for f in ("R", "t", "v", "descriptors", "valid", "lm_valid")}
+        log(f"vio: two card runs of one robot over {VIO_DET_FRAMES} frames, "
+            f"fields bit-identical: {same}")
+        if len(vio2.keyframes) != n_kf or not all(same.values()):  # 5
+            fail("vio: two card runs of one robot's pipeline differ")
+
+        res = {
+            "vio_args": " ".join(VIO_ARGS), "vio_sim_ms": vio_sim_ms,
+            "vio_render_ms": st["render_s"] * 1e3,
+            "vio_ms": st["vio_s"] * 1e3, "vio_keyframes": out["n_keyframes"],
+            "vio_keyframes_made": int(kf_ms.size),
+            "vio_keyframe_ms_mean": float(kf_ms.mean()),
+            "vio_keyframe_ms_p90": float(np.percentile(kf_ms, 90)),
+            "vio_fe_ms": st["frontend_s"] * 1e3,
+            "vio_build_pose_graph_ms": st["build_pose_graph_s"] * 1e3,
+            "vio_pcm_ms": st["pcm_s"] * 1e3,
+            "vio_robust_pgo_ms": st["robust_pgo_s"] * 1e3,
+            "vio_logs_ms": st["logs_s"] * 1e3,
+            "vio_n_loops": out["n_loops"],
+            "vio_n_inter_loops": out["n_inter_loops"],
+            "vio_bow_weight_span": out["bow_weight_span"],
+            "vio_reject_steps": n_rej, "vio_launches": launches,
+            "vio_fe_launches": fe_launches, "vio_peak_mem_mb": peak_mb,
+            "vio_one_robot_keyframe_ms_by_stage": stage_ms,
+            "vio_one_robot_keyframe_ms": kf_ms2,
+        }
+        for r, a in enumerate(ape):
+            res[f"vio_ape_rmse_trans_{r}"] = a.rmse_trans
+            res[f"vio_ape_rmse_full_{r}"] = a.rmse_full
+        res["vio_rel_rot_max"] = rot.tolist()
+
+        if profile:
+            # one more keyframe of the second run, traced; the aten
+            # operations of each stage on the next one
+            from torch.profiler import ProfilerActivity, profile as tprof
+
+            k = VIO_DET_FRAMES
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                vio_feed(vio2, seq, k)
+                torch.cuda.synchronize()
+            summ = device_summary(prof, float(np.mean(kf_ms2[-3:])))
+            ops: dict = {}
+
+            def counted(label):
+                def make(orig):
+                    def wrapped(*a, **kw):
+                        box = {}
+
+                        def call():
+                            box["r"] = orig(*a, **kw)
+                        for n, c in aten_ops(call).items():
+                            ops.setdefault(label, {})
+                            ops[label][n] = ops[label].get(n, 0) + c
+                        return box["r"]
+                    return wrapped
+                return make
+
+            with contextlib.ExitStack() as stack:
+                for lab, (obj, name) in {
+                        "klt_and_stereo": (P, "_klt"),
+                        "gftt": (tracking, "gftt_detect"),
+                        "describe": (pipeline.desc_mod, "describe"),
+                        "reject": (P, "_reject"),
+                        "preintegrate": (P, "_preintegrate_buffer"),
+                        "smooth": (P, "_optimize_window")}.items():
+                    stack.enter_context(patched(obj, name, counted(lab)))
+                vio_feed(vio2, seq, k + 1)
+            summ["aten_ops_by_stage"] = {
+                lab: sum(c.values()) for lab, c in ops.items()}
+            summ["top_aten_ops_smooth"] = dict(sorted(
+                ops.get("smooth", {}).items(), key=lambda kv: -kv[1])[:12])
+            print(json.dumps({"profile_vio_keyframe": summ}), flush=True)
+
+        # ---- card against CPU at the JAX e2e test's size (6, 7) ---------
+        small = {}
+        for d in (str(dev), "cpu"):
+            ld = os.path.join(tmp, f"small_{d}")
+            t = time.perf_counter()
+            o = run.main(VIO_SMALL_ARGS + ["--device", d, "--log-dir", ld])
+            ms = (time.perf_counter() - t) * 1e3
+            small[d] = vio_gate1(o, ld, 2, f"2 x 16 on the {d}") + (ms, o)
+        diff = [abs(a.rmse_trans - b.rmse_trans)
+                for a, b in zip(small[str(dev)][0], small["cpu"][0])]
+        log(f"vio-sim 2 x 16: card {small[str(dev)][2]:.0f} ms, CPU "
+            f"{small['cpu'][2]:.0f} ms; APE trans |card - CPU| {diff} "
+            f"(limit {VIO_APE_DIFF})")
+        if not all(x < VIO_APE_DIFF for x in diff):
+            fail("vio-sim 2 x 16: card and CPU APE differ by 0.15 m or more")
+        res.update(
+            vio_small_args=" ".join(VIO_SMALL_ARGS),
+            vio_small_card_ms=small[str(dev)][2],
+            vio_small_cpu_ms=small["cpu"][2],
+            vio_small_ape_rmse_trans={d: [a.rmse_trans for a in v[0]]
+                                      for d, v in small.items()},
+            vio_small_ape_rmse_full={d: [a.rmse_full for a in v[0]]
+                                     for d, v in small.items()},
+            vio_small_rel_rot_max={d: v[1].tolist()
+                                   for d, v in small.items()},
+            vio_small_loops={d: v[3]["n_loops"] for d, v in small.items()})
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     t_start = time.time()
     # ------------------------------------------------------------------ 1
@@ -2532,6 +2940,10 @@ def main() -> None:
     stages.update(entry_phase(dev, profile, check))
     # ------------------------------------------------------------------ 9
     stages.update(sim_phase(dev, profile, stages["fe_launches"]))
+    # ----------------------------------------------------------------- 10
+    stages.update(vio_phase(dev, profile, check))
+    for k in kernels:
+        k["launches_vio_sim"] = stages["vio_launches"].get(k["name"], 0)
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

@@ -21,12 +21,19 @@ Layer map (what is ported so far):
   solve/     Gauss-Newton PGO, rank-lifted RBCD rounds, GNC-TLS weights,
              PCM frame initialization, robust PGO, chordal initialization,
              deterministic sums onto poses (incidence tables)
+  vio/       visual-inertial odometry: bilinear sampling, undistortion,
+             GFTT and pyramidal KLT, BRIEF descriptors, IMU
+             preintegration, the fixed-lag smoother (forward-mode
+             Gauss-Newton), the host-driven VioPipeline with RANSAC
+             outlier rejection
   io/        synthetic keyframe stores, candidate pairs, multi-robot pose
              graphs and the simulated multi-robot world (numpy);
-             reference-schema logs
+             reference-schema logs; the rendered stereo + IMU sequence
+             (render); reference parameter files (config)
   eval/      absolute pose error
-  cli/       run.py: the `sim` run end to end
-  convert    state handed over from the JAX package as numpy
+  cli/       run.py: the `sim` and `vio-sim` runs end to end
+  convert    state handed over from the JAX package as numpy (VIO
+             configs, states, windows and keyframes too)
   entry      the fused SLAM step: verification, then one RBCD round
 """
 

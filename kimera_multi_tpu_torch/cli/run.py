@@ -1,13 +1,22 @@
-"""End-to-end run entry point of the port (the JAX package's cli/run.py,
-its `sim` mode with the single-device back-end).
+"""End-to-end run entry point of the port (the JAX package's cli/run.py:
+its `sim` and `vio-sim` modes with the single-device back-end).
 
     python -m kimera_multi_tpu_torch.cli.run --mode sim --robots 2 \
         --steps 30 --features 64 --seed 1 --log-dir LOGS [--device cpu]
+    python -m kimera_multi_tpu_torch.cli.run --mode vio-sim --robots 2 \
+        --steps 16 --seed 0 --log-dir LOGS [--vio-width 640 \
+        --vio-height 480 --vio-features 300 --vio-window 25] [--device cpu]
 
 sim: synthetic sensor world -> vocabulary -> batched front-end (BoW
 detection, RANSAC verification) -> pose graph (optionally coarsened to
 submaps) -> PCM + GNC robust PGO -> reference-schema logs + APE per robot.
-Runs on the card unless `--device cpu` is given; asking for the card
+vio-sim: the same from pixels: a rendered stereo + IMU sequence -> one
+VIO pipeline per robot over its staggered frame window (tracking,
+preintegration, outlier rejection, fixed-lag smoother) -> the batched
+front-end on the keyframes' descriptors, bearings and landmarks -> pose
+graph from the VIO odometry and the loops -> PCM + GNC robust PGO -> logs
++ APE against ground truth at keyframe times.
+Both run on the card unless `--device cpu` is given; asking for the card
 where there is none raises.
 
 Outputs under --log-dir follow the reference contract:
@@ -33,8 +42,13 @@ import time
 # mode / flag -> what is missing (ROADMAP Queue 1)
 _NOT_PORTED = {
     "sim-sharded": "the sharded back-end (ROADMAP Queue 1 item 6, M11)",
-    "vio-sim": "VIO (ROADMAP Queue 1 item 7, M12)",
-    "euroc": "VIO on recorded data (ROADMAP Queue 1 item 7, M12)",
+    "euroc": "VIO on recorded EuRoC sessions, io/dataset.py and "
+             "io/convert.py (ROADMAP Queue 1 item 7, M12 remainder)",
+    "--euroc-roots": "VIO on recorded EuRoC sessions, io/dataset.py and "
+                     "io/convert.py (ROADMAP Queue 1 item 7, M12 "
+                     "remainder)",
+    "--lc-images": "loop-closure image evidence, eval/lc_forensics.py and "
+                   "io/png.py (ROADMAP Queue 1 item 9, M14)",
     "--backend sharded": "the sharded back-end (ROADMAP Queue 1 item 6, "
                          "M11)",
     "--frontend sequential": "the sequential front-end DistributedFrontend "
@@ -78,19 +92,37 @@ def main(argv=None):
     p.add_argument("--profile", default=None, metavar="DIR")
     p.add_argument("--chain-refine", action="store_true")
     p.add_argument("--save-obs", default=None)
+    p.add_argument("--euroc-roots", nargs="+", default=None)
+    p.add_argument("--lc-images", type=float, default=None,
+                   metavar="DIST_M")
+    p.add_argument("--vio-width", type=int, default=128,
+                   help="vio-sim: rendered image width (reference "
+                        "envelope 640)")
+    p.add_argument("--vio-height", type=int, default=96,
+                   help="vio-sim: rendered image height (reference "
+                        "envelope 480)")
+    p.add_argument("--vio-features", type=int, default=96,
+                   help="vio-sim: VIO feature budget (reference envelope "
+                        "300, maxFeaturesPerFrame)")
+    p.add_argument("--vio-window", type=int, default=8,
+                   help="vio-sim: smoother window size (reference "
+                        "envelope 25 keyframes)")
     args = p.parse_args(argv)
 
-    asked = [args.mode] if args.mode != "sim" else []
+    asked = [args.mode] if args.mode in _NOT_PORTED else []
     asked += [f"--backend {args.backend}"] * (args.backend != "single")
     asked += [f"--frontend {args.frontend}"] * (args.frontend != "batched")
     asked += [flag for flag, on in (
         ("--artifacts", args.artifacts), ("--checkpoint", args.checkpoint),
         ("--resume", args.resume), ("--profile", args.profile),
         ("--chain-refine", args.chain_refine),
-        ("--save-obs", args.save_obs)) if on]
+        ("--save-obs", args.save_obs), ("--euroc-roots", args.euroc_roots),
+        ("--lc-images", args.lc_images is not None)) if on]
     if asked:
         raise SystemExit(f"kimera_multi_tpu_torch.cli.run: {asked[0]} is "
                          f"not ported yet: {_NOT_PORTED[asked[0]]}")
+    if args.mode == "vio-sim":
+        return run_vio_sim(args)
     return run_sim(args)
 
 
@@ -188,6 +220,194 @@ def run_sim(args):
     return dict(ape=results, n_opt_poses=args.robots * ppr,
                 n_keyframes=args.robots * args.steps, stages=stages,
                 frontend=fe_stats, loops=fe.loops, backend=backend_out)
+
+
+class _VioWorld:
+    """World-shaped view of the per-robot VIO keyframe products, so that
+    the vio-sim run reuses write_logs (timestamps and ground truth at
+    keyframe times)."""
+
+    def __init__(self, timestamps, t_gt, R_gt, R_odo, t_odo):
+        self.timestamps = timestamps  # (R, T)
+        self.t_gt = t_gt  # (R, T, 3)
+        self.R_gt = R_gt  # (R, T, 3, 3)
+        self.R_odo = R_odo  # (R, T-1, 3, 3)
+        self.t_odo = t_odo  # (R, T-1, 3)
+
+
+def vio_sim_config(width: int, height: int, features: int, window: int):
+    """The vio-sim run's VIO `PipelineConfig` for a rendered rig of this
+    size: focal 0.86 x width, the stereo baseline 0.2 m, every frame a
+    keyframe, 200 RANSAC hypotheses, 12 Gauss-Newton iterations."""
+    from ..vio import imu, pipeline, smoother, tracking
+    from ..vio.undistort import CameraModel
+
+    W, H = width, height
+    return pipeline.PipelineConfig(
+        cam=CameraModel(fx=0.86 * W, fy=0.86 * W, cx=W / 2, cy=H / 2),
+        baseline=0.2, window_size=window, max_features=features,
+        gftt=tracking.GfttParams(max_features=features,
+                                 min_distance=max(6, W // 21),
+                                 quality_level=0.001),
+        klt=tracking.KltParams(win_size=12 if W <= 256 else 24,
+                               max_level=3, max_iter=20),
+        min_intra_keyframe_time=0.0, disparity_threshold=0.0,
+        ransac_iterations=200, min_mono_inliers=8, min_stereo_inliers=4,
+        vio=smoother.VioConfig(gn_iters=12),
+        imu=imu.ImuParams(gyro_noise=2e-3, accel_noise=2e-2))
+
+
+def run_vio_sim(args):
+    """The `vio-sim` mode: VIO -> loop-closure front-end -> robust PGO from
+    pixels. All robots traverse the same rendered scene on one arc with
+    staggered frame windows (half a window apart), so later robots revisit
+    earlier robots' places.
+
+    Returns dict(ape, n_keyframes, n_loops, n_inter_loops, frontend_stats)
+    as the JAX package's run_vio_sim does, and besides: `stages` (seconds
+    on a synchronised clock: render, vio, frontend, build_pose_graph,
+    pcm, robust_pgo, logs; `vio_frame_s`, each keyframe-making frame's
+    time), `rejection_logs` (each robot's `RejectionStats` per keyframe),
+    `loops`, and `bow_weight_span` (the largest ratio of a keyframe BoW
+    vector's largest to smallest nonzero weight; detection on the card
+    equals the CPU's while it stays under 2^22, kernels/bow.py)."""
+    import numpy as np
+
+    from ..core import backend
+    from ..frontend import batched, vocab as vocab_mod
+    from ..frontend.dlc import FrontendConfig
+    from ..io import render as render_mod
+    from ..vio import pipeline as vio_pipeline
+
+    dev = backend.resolve_device(args.device)
+    t_start = time.time()
+    stages = {}
+    Rn, F = args.robots, args.steps
+    # --vio-width 640 --vio-height 480 --vio-features 300 --vio-window 25
+    # is the reference envelope (params/D455)
+    H, W = args.vio_height, args.vio_width
+    feats = args.vio_features
+    cfg = vio_sim_config(W, H, feats, args.vio_window)
+    rig = render_mod.StereoRig(cam=cfg.cam, H=H, W=W, baseline=cfg.baseline)
+    # 50 % window overlap between consecutive robots: revisits
+    stride = max(F // 2, 1)
+    F_total = stride * (Rn - 1) + F
+    print(f"[run] rendering {F_total} stereo frames ({Rn} robots x {F} "
+          f"frames, {W}x{H}, {feats} features, stride {stride})",
+          file=sys.stderr)
+    t = backend.synced_clock(dev)
+    scene = render_mod.make_scene(seed=args.seed,
+                                  n_points=max(350, 4 * feats))
+    seq = render_mod.render_sequence(
+        scene, rig, n_frames=F_total, rate_hz=10.0, imu_rate_hz=100.0,
+        speed=0.6, yaw_rate=0.1, device=dev)
+    stages["render_s"] = backend.synced_clock(dev) - t
+
+    # ---- per-robot VIO over its frame window -------------------------
+    K = cfg.max_features
+    kf_all, rejection_logs, frame_s = [], [], []
+    t = backend.synced_clock(dev)
+    for r in range(Rn):
+        o = r * stride
+        vio = vio_pipeline.VioPipeline(cfg, device=dev)
+        imu_i = int(np.searchsorted(seq.imu_ts, seq.timestamps[o],
+                                    side="right"))
+        n_kf = 0
+        for k in range(o, o + F):
+            ts = seq.timestamps[k]
+            while imu_i < len(seq.imu_ts) and seq.imu_ts[imu_i] <= ts:
+                vio.add_imu(seq.imu_ts[imu_i], seq.gyro[imu_i],
+                            seq.accel[imu_i])
+                imu_i += 1
+            tf = time.perf_counter()
+            # a keyframe ends in host reads of its results: synchronised
+            kf = vio.process_frame(ts, seq.left[k], seq.right[k])
+            if kf is not None:
+                frame_s.append(time.perf_counter() - tf)
+                n_kf += 1
+        # the FINAL keyframe states, not the snapshots process_frame
+        # returned: gravity alignment (keyframe 0) and every window
+        # re-solve replace entries of vio.keyframes with refined poses
+        assert len(vio.keyframes) == n_kf
+        kf_all.append(list(vio.keyframes))
+        rejection_logs.append(list(vio.rejection_log))
+        print(f"[run] robot {r}: VIO produced {n_kf} keyframes "
+              f"(frames {o}..{o + F - 1})", file=sys.stderr)
+    stages["vio_s"] = backend.synced_clock(dev) - t
+    stages["vio_frame_s"] = frame_s
+
+    T = min(len(k) for k in kf_all)  # uniform horizon across the fleet
+    kf_all = [k[:T] for k in kf_all]
+
+    # ---- keyframe products -> the loop-closure front-end -------------
+    desc = np.zeros((Rn, T, K, 32), np.uint8)
+    bear = np.zeros((Rn, T, K, 3), np.float32)
+    lm = np.zeros((Rn, T, K, 3), np.float32)
+    val = np.zeros((Rn, T, K), bool)
+    ts_kf = np.zeros((Rn, T), np.float64)
+    for r, kfs in enumerate(kf_all):
+        for k, kf in enumerate(kfs):
+            desc[r, k] = kf.descriptors
+            bear[r, k] = kf.bearings
+            lm[r, k] = kf.landmarks
+            val[r, k] = kf.valid & kf.lm_valid
+            ts_kf[r, k] = kf.timestamp
+
+    corpus = desc[val].reshape(-1, 32)
+    sub = corpus[:: max(1, len(corpus) // 4000)]
+    voc = vocab_mod.build_vocabulary(sub, k=8, depth=3, seed=args.seed,
+                                     device=dev)
+    fe = batched.BatchedFrontend(Rn, T, voc,
+                                 FrontendConfig(base_seed=args.seed),
+                                 device=dev)
+    print("[run] front-end (batched detect + verify) on VIO keyframes...",
+          file=sys.stderr)
+    t = backend.synced_clock(dev)
+    stats = fe.process_all(desc, bear, lm, val)
+    stages["frontend_s"] = backend.synced_clock(dev) - t
+    n_inter = sum(1 for lc in fe.loops if lc.robot_a != lc.robot_b)
+    print(f"[run] committed loop closures: {len(fe.loops)} ({n_inter} "
+          f"inter-robot; attempts {len(fe.lcd_attempts)})", file=sys.stderr)
+    bow_w = fe.compute_bows(desc, val)[1]
+    nz = bow_w > 0
+    has = nz.any(-1)
+    span = float((np.where(nz, bow_w, 0).max(-1)[has]
+                  / np.where(nz, bow_w, np.inf).min(-1)[has]).max()
+                 ) if has.any() else 0.0
+
+    # ---- odometry edges from the VIO keyframe estimates --------------
+    R_odo = np.zeros((Rn, T - 1, 3, 3), np.float32)
+    t_odo = np.zeros((Rn, T - 1, 3), np.float32)
+    for r, kfs in enumerate(kf_all):
+        Ra = np.stack([kf.R for kf in kfs])  # (T, 3, 3)
+        ta = np.stack([kf.t for kf in kfs])
+        R_odo[r] = np.einsum("kji,kjl->kil", Ra[:-1], Ra[1:])
+        t_odo[r] = np.einsum("kji,kj->ki", Ra[:-1], ta[1:] - ta[:-1])
+    t = backend.synced_clock(dev)
+    edges = fe.build_pose_graph(R_odo, t_odo)
+    stages["build_pose_graph_s"] = backend.synced_clock(dev) - t
+
+    # ground truth at keyframe times (the APE contract)
+    gt_idx = np.clip(np.searchsorted(seq.timestamps, ts_kf), 0,
+                     F_total - 1)
+    world = _VioWorld(timestamps=ts_kf, t_gt=seq.t_gt[gt_idx],
+                      R_gt=seq.R_gt[gt_idx], R_odo=R_odo, t_odo=t_odo)
+    args.steps = T  # write_logs slices by T
+    print("[run] back-end optimization (single device)...", file=sys.stderr)
+    params, weights, dpgo_rows, info = _optimize_backend(
+        args, edges, Rn, T, t_start)
+    stages["pcm_s"] = info.pop("pcm_s")
+    stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+    t = backend.synced_clock(dev)
+    results = write_logs(args, world, fe, params, weights, dpgo_rows)
+    stages["logs_s"] = backend.synced_clock(dev) - t
+    return dict(ape=results, n_keyframes=Rn * T, n_loops=len(fe.loops),
+                n_inter_loops=n_inter, frontend_stats=stats, stages=stages,
+                rejection_logs=rejection_logs, loops=fe.loops,
+                bow_weight_span=span,
+                backend=dict(info, edges=edges, weights=weights,
+                             params=params),
+                gt=dict(R=world.R_gt, t=world.t_gt))
 
 
 def _optimize_backend(args, edges, n_robots, ppr, t_start):

@@ -173,3 +173,73 @@ def submap_assignment_from_numpy(submap_of_kf, anchor_kf, n_submaps,
         submap_of_kf=i32(submap_of_kf), anchor_kf=i32(anchor_kf),
         n_submaps=int(n_submaps), R_in_submap=f32(R_in_submap),
         t_in_submap=f32(t_in_submap))
+
+
+def vio_config_from_jax(cfg):
+    """The JAX package's VIO `PipelineConfig` (any object with the same
+    field names, its nested `GfttParams`, `KltParams`, `VioConfig`,
+    `ImuParams` and `CameraModel` included) -> the port's."""
+    from .vio import imu, pipeline, smoother, tracking, undistort
+
+    nested = {"gftt": tracking.GfttParams, "klt": tracking.KltParams,
+              "vio": smoother.VioConfig, "imu": imu.ImuParams,
+              "cam": undistort.CameraModel}
+    fields = {}
+    for f in pipeline.PipelineConfig._fields:
+        v = getattr(cfg, f)
+        if f in nested:
+            v = nested[f](**{g: getattr(v, g) for g in nested[f]._fields})
+        fields[f] = v
+    return pipeline.PipelineConfig(**fields)
+
+
+def _f32(a, device):
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def vio_state_from_numpy(R, t, v, bg, ba, device="cuda"):
+    """The fields of the JAX package's `VioState` ((W, 3, 3) and (W, 3)
+    arrays) -> the port's, float32 on `device`."""
+    from .vio.smoother import VioState
+
+    return VioState(*(_f32(a, device) for a in (R, t, v, bg, ba)))
+
+
+def preintegrated_from_numpy(device="cuda", **fields):
+    """The fields of the JAX package's `Preintegrated` as numpy arrays
+    (by name) -> the port's, float32 on `device`."""
+    from .vio.imu import Preintegrated
+
+    return Preintegrated(**{f: _f32(fields[f], device)
+                            for f in Preintegrated._fields})
+
+
+def vio_window_from_numpy(pre: dict, anchor: dict, device="cuda", **fields):
+    """The JAX package's `VioWindow` as numpy: `pre` and `anchor` the
+    fields of its `Preintegrated` and anchor `VioState` by name, the other
+    fields by name (bool masks stay bool; absent optional fields None) ->
+    the port's on `device`."""
+    from .vio.smoother import VioWindow
+
+    out = {}
+    for f in VioWindow._fields:
+        if f in ("pre", "anchor") or fields.get(f) is None:
+            continue
+        a = np.asarray(fields[f])
+        out[f] = (torch.tensor(a, device=device) if a.dtype == bool
+                  else _f32(a, device))
+    return VioWindow(pre=preintegrated_from_numpy(device, **pre),
+                     anchor=vio_state_from_numpy(**anchor, device=device),
+                     **out)
+
+
+_KF_FIELDS = ("timestamp", "R", "t", "v", "track_ids", "pts", "bearings",
+              "landmarks", "lm_valid", "descriptors", "valid",
+              "mono_inliers", "stereo_inliers", "n_rejected")
+
+
+def keyframes_to_numpy(keyframes) -> dict:
+    """VIO `KeyframeOutput` records (the port's or the JAX package's: the
+    same fields) -> one numpy array per field, stacked over keyframes."""
+    return {f: np.stack([np.asarray(getattr(k, f)) for k in keyframes])
+            for f in _KF_FIELDS}

@@ -68,6 +68,16 @@ def _masked_sample_parts(key, valid: torch.Tensor, n_hyp: int, k: int,
     return picks.contiguous(), order, inv_order
 
 
+def _masked_sample(key, valid: torch.Tensor, n_hyp: int, k: int,
+                   u: torch.Tensor | None = None) -> torch.Tensor:
+    """(C, n_hyp, k) distinct indices drawn only from valid positions
+    (the composed form of `_masked_sample_parts`: order[picks])."""
+    picks, order, _inv = _masked_sample_parts(key, valid, n_hyp, k, u)
+    C = picks.shape[0]
+    return torch.gather(order, 1, picks.reshape(C, -1).long()).reshape(
+        picks.shape)
+
+
 def _distinct(picks: torch.Tensor) -> torch.Tensor:
     """(..., H) bool — True where the sample has no repeated index."""
     srt = torch.sort(picks, dim=-1).values
@@ -257,3 +267,40 @@ def ransac_essential_5pt(key, f1: torch.Tensor, f2: torch.Tensor,
                                     threshold)
     E_b = _take_best(E_sel, score.first_argmax(counts))
     return _essential_result(E_b, f1, f2, valid, threshold, min_inliers)
+
+
+def ransac_translation_known_rotation(key, p: torch.Tensor, q: torch.Tensor,
+                                      R_known: torch.Tensor,
+                                      valid: torch.Tensor,
+                                      threshold: float = 0.3,
+                                      n_hyp: int = 200, min_inliers: int = 5,
+                                      u: torch.Tensor | None = None):
+    """1-point 3d3d RANSAC with a known rotation (the reference's
+    `ransac_use_1point_3d3d`, rotation from the IMU): hypothesis
+    t = q_i - R p_i. p, q: (C, 3, K) SoA; R_known (C, 3, 3); valid (C, K).
+    Plain PyTorch (C, n_hyp, K) scoring: the JAX package reaches no kernel
+    here either. Returns dict with R, t (C, 3), inliers (C, K),
+    n_inliers (C,), ok (C,)."""
+    idx = _masked_sample(key, valid, n_hyp, 1, u)[:, :, 0]  # (C, H)
+    diff = q - R_known @ p  # (C, 3, K)
+    t_h = torch.gather(diff, 2, idx[:, None, :].expand(-1, 3, -1).long())
+    e = diff[:, :, None, :] - t_h[:, :, :, None]  # (C, 3, H, K)
+    d2 = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2]
+    inl = (d2 < threshold * threshold) & valid[:, None, :]
+    counts = torch.sum(inl, dim=2)
+    best = score.first_argmax(counts)
+    best_inl = _take_best(inl, best)
+    # refine: mean translation over the consensus set
+    w = best_inl.to(p.dtype)[:, None, :]
+    t_b = torch.sum(diff * w, dim=2) / torch.clamp(torch.sum(w, dim=2),
+                                                   min=1.0)
+    resid_b = diff - t_b[:, :, None]
+    best_inl = (torch.sum(resid_b * resid_b, dim=1)
+                < threshold * threshold) & valid
+    return {
+        "R": R_known,
+        "t": t_b,
+        "inliers": best_inl,
+        "n_inliers": torch.sum(best_inl, dim=1, dtype=torch.int32),
+        "ok": _take_best(counts, best) >= min_inliers,
+    }

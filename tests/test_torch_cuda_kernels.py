@@ -1,5 +1,8 @@
 """The nine CUDA kernels of the port against their plain PyTorch versions,
-on the card, and the detection slice on the card against the CPU. These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
+on the card (also at the shapes of the VIO reject step and of the
+front-end at 300 features a keyframe), the detection slice on the card
+against the CPU, and one robot's VIO pipeline run twice on the card (the
+same bits). These tests need an NVIDIA GPU and nvcc; elsewhere they skip.
 Run them on a machine with a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -644,3 +647,108 @@ def test_robust_pgo_deterministic_and_equal_to_cpu(dev):
     assert torch.equal(lc & (card[2] < 0.5), lc & (cpu[2] < 0.5))
     np.testing.assert_allclose(card[0].numpy(), cpu[0].numpy(), atol=1e-4)
     np.testing.assert_allclose(card[1].numpy(), cpu[1].numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("H", [200, 500])
+def test_vio_reject_shapes(dev, H):
+    """The VIO reject step's kernel calls at the vio-sim run's full width:
+    one candidate (C = 1), K = 300 features, H hypotheses; K4 at k = 8
+    (mono) and k = 3 (stereo), K8 and K9 once each."""
+    rs = np.random.default_rng(8)
+    K = 300
+    valid = rs.uniform(size=(1, K)) < 0.6
+    order = np.concatenate([np.nonzero(valid[0])[0],
+                            np.nonzero(~valid[0])[0]])[None]
+    data = rs.normal(size=(1, 3, K)).astype(np.float32)
+    tens = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    order_t = tens(order.astype(np.int32))
+    inv_t = torch.argsort(order_t, dim=1).to(torch.int32)
+    for k in (8, 3):
+        picks = tens(rs.integers(0, int(valid.sum()), (1, H, k)).astype(
+            np.int32))
+        got = gather.sample_gather_perm_t(tens(data), picks, order_t, inv_t)
+        assert torch.equal(got, gather.sample_gather_perm_t_ref(
+            tens(data), picks, order_t))
+    p = rs.uniform(-4, 4, (1, 3, K)).astype(np.float32)
+    q = rs.uniform(-4, 4, (1, 3, K)).astype(np.float32)
+    R = _so3_exp_np(rs.normal(0, 0.6, (1, H, 3))).astype(np.float32)
+    t = rs.uniform(-1, 1, (1, H, 3)).astype(np.float32)
+    E = rs.normal(size=(1, H, 3, 3)).astype(np.float32)
+    f1 = p / np.linalg.norm(p, axis=1, keepdims=True)
+    f2 = q / np.linalg.norm(q, axis=1, keepdims=True)
+    R, t, E, p, q, f1, f2, v = (tens(x) for x in (R, t, E, p, q, f1, f2,
+                                                  valid))
+    assert torch.equal(score.rigid_counts(R, t, p, q, v, 6.0),
+                       score.rigid_counts_ref(R, t, p, q, v, 6.0))
+    assert torch.equal(score.essential_counts(E, f1, f2, v, 0.05),
+                       score.essential_counts_ref(E, f1, f2, v, 0.05))
+
+
+def test_frontend_kernels_at_vio_features(dev):
+    """The front-end's kernels at the vio-sim run's K = 300 features a
+    keyframe (K7's preselect engages since K > 2 P = 128): K1, K5, K7 and
+    K9 on a chunk of 64 candidates."""
+    rs = np.random.default_rng(9)
+    C, K, H, S, P = 64, 300, 500, 8, 64
+    tens = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    dt = rs.integers(0, 256, (C, K, 32), dtype=np.uint8)
+    dq = dt[:, rs.integers(0, K, K)].copy()
+    dq[:, :, 5] ^= 9
+    vt = rs.uniform(size=(C, K)) < 0.7
+    args = [tens(x) for x in (dq, dt, vt)]
+    for g, r in zip(hamming._pair_top2(*args),
+                    hamming._pair_top2_ref(*args)):
+        assert torch.equal(g, r)
+    data = tens(rs.normal(size=(C, 3, K)).astype(np.float32))
+    idx = tens(rs.integers(0, K, (C, K)).astype(np.int32))
+    assert torch.equal(gather.permute_cols(data, idx),
+                       gather.permute_cols_ref(data, idx))
+    f = rs.normal(size=(2, C, 3, K)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=2, keepdims=True)
+    f1, f2 = tens(f[0]), tens(f[1])
+    valid = tens(rs.uniform(size=(C, K)) < 0.8)
+    E_rows = tens(rs.normal(size=(C, 9 * S, H)).astype(np.float32))
+    pv = valid[:, :P].contiguous()
+    f1p, f2p = f1[:, :, :P].contiguous(), f2[:, :, :P].contiguous()
+    assert torch.equal(fivept.presel_counts(E_rows, f1p, f2p, pv, 0.05, S),
+                       fivept.presel_counts_ref(E_rows, f1p, f2p, pv, 0.05,
+                                                S))
+    E = tens(rs.normal(size=(C, H, 3, 3)).astype(np.float32))
+    assert torch.equal(score.essential_counts(E, f1, f2, valid, 0.05),
+                       score.essential_counts_ref(E, f1, f2, valid, 0.05))
+
+
+def test_vio_pipeline_deterministic(dev):
+    """One robot's VioPipeline over 6 rendered frames (160 x 120, 64
+    features, window 4), twice on the card: the same bits in every
+    keyframe's pose, velocity, descriptors and masks."""
+    from kimera_multi_tpu_torch import convert
+    from kimera_multi_tpu_torch.io import render
+    from kimera_multi_tpu_torch.vio import pipeline, smoother, tracking
+    from kimera_multi_tpu_torch.vio.undistort import CameraModel
+
+    W, H = 160, 120
+    cam = CameraModel(fx=0.86 * W, fy=0.86 * W, cx=W / 2, cy=H / 2)
+    seq = render.render_sequence(
+        render.make_scene(0, 350), render.StereoRig(cam, H, W, 0.2),
+        n_frames=6, rate_hz=10.0, imu_rate_hz=100.0, speed=0.6,
+        yaw_rate=0.1, device=dev)
+    cfg = pipeline.PipelineConfig(
+        cam=cam, baseline=0.2, window_size=4, max_features=64,
+        gftt=tracking.GfttParams(max_features=64, min_distance=7),
+        klt=tracking.KltParams(win_size=12, max_level=3, max_iter=20),
+        min_intra_keyframe_time=0.0, disparity_threshold=0.0,
+        ransac_iterations=200, min_mono_inliers=8, min_stereo_inliers=4,
+        vio=smoother.VioConfig(gn_iters=12))
+    runs = []
+    for _ in range(2):
+        vio, i = pipeline.VioPipeline(cfg, device=dev), 0
+        for k in range(6):
+            while i < len(seq.imu_ts) and seq.imu_ts[i] <= seq.timestamps[k]:
+                vio.add_imu(seq.imu_ts[i], seq.gyro[i], seq.accel[i])
+                i += 1
+            vio.process_frame(seq.timestamps[k], seq.left[k], seq.right[k])
+        runs.append(convert.keyframes_to_numpy(vio.keyframes))
+    assert len(runs[0]["R"]) == 6
+    for f in ("R", "t", "v", "descriptors", "valid", "lm_valid", "pts"):
+        assert np.array_equal(runs[0][f], runs[1][f]), f

@@ -145,7 +145,8 @@ def test_sim_submaps(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mode", "sim-sharded"], "M11"), (["--mode", "vio-sim"], "M12"),
+    (["--mode", "sim-sharded"], "M11"),
+    (["--mode", "vio-sim", "--euroc-roots", "x"], "M12"),
     (["--mode", "euroc"], "M12"), (["--backend", "sharded"], "M11"),
     (["--frontend", "sequential"], "M10"), (["--artifacts"], "M13"),
     (["--checkpoint", "x"], "M11"), (["--resume", "x"], "M11"),

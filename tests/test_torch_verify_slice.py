@@ -202,7 +202,10 @@ def test_port_imports_no_jax():
         "          'io.synthetic', 'solve.pgo', 'solve.rbcd',\n"
         "          'solve.gnc', 'entry', 'solve.pcm', 'solve.robust',\n"
         "          'solve.chordal', 'solve.incidence', 'frontend.submap',\n"
-        "          'eval.ape', 'io.logs', 'cli.run'):\n"
+        "          'eval.ape', 'io.logs', 'cli.run', 'io.render',\n"
+        "          'io.config', 'vio._sample', 'vio.undistort',\n"
+        "          'vio.tracking', 'vio.descriptors', 'vio.imu',\n"
+        "          'vio.smoother', 'vio.pipeline'):\n"
         "    assert 'kimera_multi_tpu_torch.' + m in new, m\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True)
