@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives seven paths:
+(`check_fivept`). Then it drives eight paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -55,16 +55,35 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     closures under 0.5; APE within 5 %), two card runs of the back-end
     bit-identical, the kernel launches inside main() equal to the
     front-end path's with no plain version run, and the submap run's APE
-    below max(2 x the keyframe level's, 0.08 m).
+    below max(2 x the keyframe level's, 0.08 m). The first run also
+    writes its observation streams (`--save-obs`), and the replay gate,
+    `cli.replay.main`, re-verifies every attempt it logged on the card
+    (accepted bit for bit, each robot's APE from the TUM files within
+    1e-4 m of the run's own, every kernel of the path launched, no plain
+    version);
   * the `vio-sim` run of the port's CLI, `cli.run.main(["--mode",
     "vio-sim", "--robots", "6", "--steps", "30", "--vio-width", "640",
     "--vio-height", "480", "--vio-features", "300", "--vio-window", "25",
     ...])`: a rendered stereo + IMU sequence, one VIO pipeline per robot
     (reject steps on K4, K8, K9), the front-end, robust PGO, logs, APE.
     Checked (`vio_phase`): loops, APE, attitude, launches per reject
-    step, no plain version, one reject step's calls against their plain
-    versions, two card runs of a robot bit-identical, card vs CPU at the
-    JAX e2e test's size, the BoW weight span.
+    step, no plain version, the kernel calls of one reject step and of
+    the front-end inside main() against their plain versions, two card
+    runs of a robot bit-identical, card vs CPU at the JAX e2e test's
+    size, the BoW weight span;
+  * the `euroc` run of the port's CLI, `cli.run.main(["--mode", "euroc",
+    "--euroc-roots", <PNG tree>, <PGM tree>, <bag>, "--steps", "40",
+    ...])` on three sessions rendered at EuRoC's camera (752 x 480, its
+    cam0 intrinsics, 0.110 m baseline, 20 Hz camera, 200 Hz IMU), 20
+    frames apart on one arc: VIO on each session, the front-end, robust
+    PGO, logs, APE. Checked (`euroc_phase`): 120 keyframes, inter-robot
+    loops, APE, attitude, the log tree, launches per reject step, no
+    plain version, the kernel calls of one reject step and of the
+    front-end inside main() against their plain versions, the BoW
+    weight span; then the converter on the card, `io.convert.main(
+    ["--euroc", <PGM tree>, ...])`, whose obs_robot0.npz must equal the
+    run's products of that session bit for bit; and a frame written as
+    a PNG with libpng's adaptive row filters, decoded and timed.
 
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
@@ -1527,6 +1546,119 @@ def sim_apes(params, world, device) -> list:
                     f(world.R_gt[r])) for r in range(world.t_gt.shape[0])]
 
 
+def check_log_tree(log_dir: str, n_robots: int, T: int, what: str) -> None:
+    """Every robot's TUM file holds T finite rows and every CSV of the
+    reference schema carries the port's `io.logs` header."""
+    import glob
+    import os
+
+    from kimera_multi_tpu_torch.io import logs
+
+    headers = {"loop_closures.csv": logs.LOOP_CLOSURES_HEADER,
+               "kimera_distributed_keyframes.csv": logs.KEYFRAMES_HEADER,
+               "lcd_attempts.csv": logs.LCD_ATTEMPTS_HEADER,
+               "dpgo_log_0.csv": logs.DPGO_LOG_HEADER,
+               "output_lcd_status.csv": logs.LCD_STATUS_HEADER}
+    for r in range(n_robots):
+        tums = glob.glob(os.path.join(
+            log_dir, f"robot{r}", "distributed",
+            "kimera_distributed_poses_tum_*.tum"))
+        rows = logs.read_tum(tums[0])[1] if len(tums) == 1 else None
+        if rows is None or len(rows) != T or not np.isfinite(rows).all():
+            fail(f"{what}: robot {r}'s TUM files {tums} do not hold {T} "
+                 f"finite rows")
+        for name, h in headers.items():
+            path = glob.glob(os.path.join(log_dir, f"robot{r}", "*", name))
+            if len(path) != 1 or open(path[0]).readline().strip() != h:
+                fail(f"{what}: robot {r}'s {name} lacks the header {h}")
+
+
+# the kernels of the verification path (K2 is on no path)
+PATH_KERNELS = ("pair_top2", "sample_gather_t", "sample_gather_perm_t",
+                "permute_cols", "fivept_models", "presel_counts",
+                "rigid_counts", "essential_counts")
+# gate (viii): each robot's APE from the TUM files (rounded poses) against
+# the run's own
+REPLAY_APE_DIFF = 1e-4
+
+
+def replay_gate(dev, out, world, log_dir: str, obs_dir: str,
+                tmp: str) -> dict:
+    """The replay acceptance gate on the card: `cli.replay.main` over a
+    `sim` run's own logs and `--save-obs` streams, with ground-truth TUM
+    files written from the world. Gates: accepted (every recorded
+    attempt's status equal, mono and stereo counts exact), as many
+    attempts as the run verified, each robot's APE within
+    REPLAY_APE_DIFF of the run's own, every kernel of the verification
+    path launched and no plain version run. Returns the stage entries."""
+    import io
+    import os
+
+    from kimera_multi_tpu_torch.cli import replay as replay_cli
+    from kimera_multi_tpu_torch.core import lie
+    from kimera_multi_tpu_torch.io import logs, replay as replay_mod
+    from kimera_multi_tpu_torch.kernels import _build
+
+    n = world.t_gt.shape[0]
+    gt = []
+    for r in range(n):
+        path = os.path.join(tmp, f"gt_robot{r}.tum")
+        q = lie.rot_to_quat(torch.from_numpy(world.R_gt[r])).numpy()
+        logs.write_tum(path, world.timestamps[r], world.t_gt[r], q)
+        gt.append(f"robot{r}={path}")
+    timing: dict = {}
+
+    def timed(orig):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(*a, **k)
+            torch.cuda.synchronize()
+            timing["verify_ms"] = (time.perf_counter() - t0) * 1e3
+            return res
+        return wrapped
+
+    args = ["--log-dir", log_dir, "--obs-dir", obs_dir, "--robots", str(n),
+            "--seed", "0", "--device", str(dev), "--gt", *gt]
+    buf = io.StringIO()
+    with patched(replay_mod, "replay_verify", timed), \
+            plain_tripwire() as ran, contextlib.redirect_stdout(buf):
+        _build.reset_launches()
+        t = time.perf_counter()
+        rc = replay_cli.main(args)
+        torch.cuda.synchronize()
+        cli_ms = (time.perf_counter() - t) * 1e3
+        launches = dict(_build.launches)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ape_diff = [abs(summary["ape"][str(r)]["rmse_trans"]
+                    - out["ape"][r].rmse_trans) for r in range(n)]
+    n_att = out["frontend"]["n_candidates"]
+    log(f"replay: cli.replay.main({' '.join(args[:10])} ...) rc {rc} in "
+        f"{cli_ms:.0f} ms (replay_verify {timing['verify_ms']:.0f} ms): "
+        f"{ {k: v for k, v in summary.items() if k != 'ape'} }; APE "
+        f"|replayed - run| {ape_diff} (limit {REPLAY_APE_DIFF}); launches "
+        f"{launches}; plain versions run: {ran}")
+    if rc != 0 or summary["accepted"] is not True:
+        fail("replay: the gate rejects the run's own logs")
+    if not (summary["n_candidates"] == summary["n_status_match"]
+            == summary["n_mono_exact"] == summary["n_stereo_exact"]
+            == n_att):
+        fail(f"replay: not every one of the run's {n_att} attempts replays "
+             f"bit for bit")
+    if not all(d < REPLAY_APE_DIFF for d in ape_diff):
+        fail("replay: a replayed APE is off the run's own")
+    if ran:
+        fail(f"replay: plain versions ran {ran}")
+    idle = [k for k in PATH_KERNELS if launches.get(k, 0) == 0]
+    if idle:
+        fail(f"replay: kernels of the path never launched: {idle}")
+    return {"replay_cli_ms": cli_ms,
+            "replay_verify_ms": timing["verify_ms"],
+            "replay_candidates": summary["n_candidates"],
+            "replay_launches": launches,
+            "replay_ape_diff_max": max(ape_diff)}
+
+
 def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
     """(f) the port's CLI, `cli.run.main(--mode sim)`, on make_world(6,
     1024, 704, seed=0) with the defaults (40 GNC rounds, 8 GN x 40 CG
@@ -1539,9 +1671,9 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
     runs of robust_pgo on the full graph give the same bits; (vi) the
     kernel launches inside main() equal the front-end phase's, and no
     plain version runs; (vii) with submaps, fewer optimized poses and
-    each APE below max(2 x the keyframe-level value, 0.08). Returns the
-    stage entries."""
-    import glob
+    each APE below max(2 x the keyframe-level value, 0.08); (viii) the
+    first run's `--save-obs` streams and logs replayed by `cli.replay`
+    (`replay_gate`). Returns the stage entries."""
     import os
     import shutil
     import tempfile
@@ -1550,18 +1682,20 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
     from kimera_multi_tpu_torch.core.containers import EDGE_ODOMETRY
     from kimera_multi_tpu_torch.frontend.dlc import (
         FrontendConfig, build_pose_graph_from_loops)
-    from kimera_multi_tpu_torch.io import logs, sim_world
+    from kimera_multi_tpu_torch.io import sim_world
     from kimera_multi_tpu_torch.kernels import _build
     from kimera_multi_tpu_torch.solve import pgo
 
     tmp = tempfile.mkdtemp(prefix="kmt_sim_")
     try:
         log_dir = os.path.join(tmp, "keyframes")
+        obs_dir = os.path.join(tmp, "obs")
         with plain_tripwire() as ran:
             _build.reset_launches()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = run.main(SIM_ARGS + ["--log-dir", log_dir])
+            out = run.main(SIM_ARGS + ["--log-dir", log_dir, "--save-obs",
+                                       obs_dir])
             torch.cuda.synchronize()
             sim_ms = (time.perf_counter() - t) * 1e3
             launches = dict(_build.launches)
@@ -1579,25 +1713,7 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
         if launches != fe_launches:
             fail(f"sim: main() launched {launches}, the front-end phase "
                  f"{fe_launches}")
-        # (i)
-        headers = {"loop_closures.csv": logs.LOOP_CLOSURES_HEADER,
-                   "kimera_distributed_keyframes.csv": logs.KEYFRAMES_HEADER,
-                   "lcd_attempts.csv": logs.LCD_ATTEMPTS_HEADER,
-                   "dpgo_log_0.csv": logs.DPGO_LOG_HEADER,
-                   "output_lcd_status.csv": logs.LCD_STATUS_HEADER}
-        for r in range(N_ROBOTS):
-            tums = glob.glob(os.path.join(
-                log_dir, f"robot{r}", "distributed",
-                "kimera_distributed_poses_tum_*.tum"))
-            rows = logs.read_tum(tums[0])[1] if len(tums) == 1 else None
-            if rows is None or len(rows) != T or not np.isfinite(rows).all():
-                fail(f"sim: robot {r}'s TUM files {tums} do not hold {T} "
-                     f"finite rows")
-            for name, h in headers.items():
-                path = glob.glob(os.path.join(log_dir, f"robot{r}", "*",
-                                              name))
-                if len(path) != 1 or open(path[0]).readline().strip() != h:
-                    fail(f"sim: robot {r}'s {name} lacks the header {h}")
+        check_log_tree(log_dir, N_ROBOTS, T, "sim")                # (i)
         # (ii)
         if not bool(be["frame_ok"].all()):
             fail(f"sim: PCM left robots unplaced: {be['frame_ok'].tolist()}")
@@ -1614,6 +1730,8 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
             f"{ape_odo}")
         if not all(a < o for a, o in zip(ape, ape_odo)):
             fail("sim: a robot's APE is not below its odometry-only APE")
+        # (viii) the replay gate on the run's own logs and streams
+        replay_res = replay_gate(dev, out, world, log_dir, obs_dir, tmp)
         # (v)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1672,7 +1790,9 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
             "odometry_ape_rmse_trans": ape_odo,
             "odometry_ape_rmse_trans_mean": float(np.mean(ape_odo)),
             "sim_launches": launches,
+            "save_obs_ms": st["save_obs_s"] * 1e3,
         }
+        res.update(replay_res)
         if profile:
             from kimera_multi_tpu_torch.solve.incidence import edge_incidence
 
@@ -1751,10 +1871,6 @@ VIO_DET_FRAMES, VIO_RECORD_KF = 20, 5
 # K4 at k = 8 twice, K9; Arun stereo gate: K4 at k = 3 twice, K8)
 VIO_REJECT_LAUNCHES = {"sample_gather_perm_t": 4, "rigid_counts": 1,
                        "essential_counts": 1}
-# the kernels of the vio-sim path (K2 is on no path)
-VIO_PATH_KERNELS = ("pair_top2", "sample_gather_t", "sample_gather_perm_t",
-                    "permute_cols", "fivept_models", "presel_counts",
-                    "rigid_counts", "essential_counts")
 
 
 def vio_rel_rot_err(out) -> np.ndarray:
@@ -1784,30 +1900,30 @@ def vio_gate1(out, log_dir: str, n_robots: int, what: str) -> list:
 
     ape = [out["ape"][r] for r in range(n_robots)]
     rot = vio_rel_rot_err(out)
-    log(f"vio-sim {what}: {out['n_keyframes']} keyframes, {out['n_loops']} "
+    log(f"{what}: {out['n_keyframes']} keyframes, {out['n_loops']} "
         f"loops ({out['n_inter_loops']} inter-robot); APE trans "
         f"{[a.rmse_trans for a in ape]} full {[a.rmse_full for a in ape]}; "
         f"largest relative rotation error (rad) {rot.tolist()} (limit "
         f"{VIO_REL_ROT_MAX}); BoW weight span {out['bow_weight_span']:.4g} "
         f"(limit 2^22)")
     if out["n_loops"] < 1 or out["n_inter_loops"] < 1:
-        fail(f"vio-sim {what}: no (inter-robot) loop closure")
+        fail(f"{what}: no (inter-robot) loop closure")
     if not all(a.rmse_trans < 0.5 for a in ape):
-        fail(f"vio-sim {what}: a robot's APE translation RMSE >= 0.5 m")
+        fail(f"{what}: a robot's APE translation RMSE >= 0.5 m")
     if not (rot < VIO_REL_ROT_MAX).all():
-        fail(f"vio-sim {what}: a keyframe's attitude is off the ground "
+        fail(f"{what}: a keyframe's attitude is off the ground "
              f"truth's by {VIO_REL_ROT_MAX} rad or more")
     if not out["bow_weight_span"] < 2.0 ** 22:
-        fail(f"vio-sim {what}: BoW weights span 2^22 or more: the float64 "
+        fail(f"{what}: BoW weights span 2^22 or more: the float64 "
              f"sums of detection may round")
     lc = logs.read_csv(os.path.join(log_dir, "robot0", "distributed",
                                     "loop_closures.csv"))
     if "mono_inliers" not in lc:
-        fail(f"vio-sim {what}: loop_closures.csv lacks mono_inliers")
+        fail(f"{what}: loop_closures.csv lacks mono_inliers")
     for r in range(n_robots):
         if not os.path.isfile(os.path.join(log_dir, f"robot{r}", "single",
                                            "output_lcd_status.csv")):
-            fail(f"vio-sim {what}: robot {r} has no output_lcd_status.csv")
+            fail(f"{what}: robot {r} has no output_lcd_status.csv")
     return ape, rot
 
 
@@ -1849,6 +1965,161 @@ def vio_robot_run(dev, seq, cfg, frames: int, hooks=()):
     return vio, ms
 
 
+def path_wrappers() -> dict:
+    """The kernel wrappers of the VIO and front-end paths: kernel ->
+    (module, attribute, plain version called with the wrapper's arguments,
+    looked up when called, after plain_tripwire has closed)."""
+    from kimera_multi_tpu_torch.kernels import fivept, gather, hamming, score
+
+    return {
+        "pair_top2": (hamming, "_pair_top2",
+                      lambda *a, **k: hamming._pair_top2_ref(*a, **k)),
+        "sample_gather_t": (
+            gather, "sample_gather_t",
+            lambda *a, **k: gather.sample_gather_t_ref(*a, **k)),
+        "sample_gather_perm_t": (
+            gather, "sample_gather_perm_t",
+            lambda d, p, o, inv: gather.sample_gather_perm_t_ref(d, p, o)),
+        "permute_cols": (gather, "permute_cols",
+                         lambda *a, **k: gather.permute_cols_ref(*a, **k)),
+        "fivept_models": (
+            fivept, "fivept_models",
+            lambda *a, **k: fivept._fivept_models_ref(*a, **k)),
+        "presel_counts": (
+            fivept, "presel_counts",
+            lambda *a, **k: fivept.presel_counts_ref(*a, **k)),
+        "rigid_counts": (score, "rigid_counts",
+                         lambda *a, **k: score.rigid_counts_ref(*a, **k)),
+        "essential_counts": (
+            score, "essential_counts",
+            lambda *a, **k: score.essential_counts_ref(*a, **k)),
+    }
+
+
+@contextlib.contextmanager
+def recorded_path(record_reject: int):
+    """While open: every plain version tripwired, kernel launches counted
+    from 0, those inside BatchedFrontend.process_all counted apart, and the
+    kernel wrappers' calls, arguments and results cloned, recorded inside
+    the `record_reject`-th VioPipeline._reject call of the run and inside
+    process_all. Yields a dict: `ran` (plain versions run), `fe_launches`,
+    `reject_calls` and `fe_calls` ((kernel, args, kwargs, result) each),
+    and `launches`, filled when it closes."""
+    from kimera_multi_tpu_torch.frontend import batched
+    from kimera_multi_tpu_torch.kernels import _build
+    from kimera_multi_tpu_torch.vio import pipeline
+
+    box = {"fe_launches": {}, "reject_calls": [], "fe_calls": []}
+    at = {"list": None, "n": 0}
+    clone = lambda x: x.clone() if torch.is_tensor(x) else x
+
+    def count_fe(orig):
+        def wrapped(self, *a, **k):
+            before = dict(_build.launches)
+            at["list"] = box["fe_calls"]
+            try:
+                return orig(self, *a, **k)
+            finally:
+                at["list"] = None
+                for n, c in _build.launches.items():
+                    box["fe_launches"][n] = (box["fe_launches"].get(n, 0)
+                                             + c - before[n])
+        return wrapped
+
+    def in_reject(orig):
+        def wrapped(*a, **k):
+            if at["n"] == record_reject:
+                at["list"] = box["reject_calls"]
+            at["n"] += 1
+            try:
+                return orig(*a, **k)
+            finally:
+                at["list"] = None
+        return wrapped
+
+    def recorder(name):
+        def make(orig):
+            def wrapped(*a, **k):
+                calls = at["list"]
+                if calls is None:
+                    return orig(*a, **k)
+                args = tuple(clone(x) for x in a)
+                got = orig(*a, **k)
+                calls.append((name, args, dict(k), tuple(
+                    clone(g) for g in got) if isinstance(got, tuple)
+                    else clone(got)))
+                return got
+            return wrapped
+        return make
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(batched.BatchedFrontend, "process_all",
+                                    count_fe))
+        stack.enter_context(patched(pipeline.VioPipeline, "_reject",
+                                    in_reject))
+        for name, (m, attr, _) in path_wrappers().items():
+            stack.enter_context(patched(m, attr, recorder(name)))
+        box["ran"] = stack.enter_context(plain_tripwire())
+        _build.reset_launches()
+        yield box
+        box["launches"] = dict(_build.launches)
+
+
+def plain_over_subbatches(ref, a, k):
+    """ref(*a, **k) over slices of SUB candidates (every tensor argument
+    leads with the candidates), results concatenated."""
+    C = a[0].shape[0]
+    part = lambda i: ref(*(x[i:i + SUB] if torch.is_tensor(x) else x
+                           for x in a), **k)
+    outs = [part(i) for i in range(0, C, SUB)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def vio_path_gates(box, n_rej: int, path_kernels, what: str, check) -> dict:
+    """Gates on a run recorded by `recorded_path`: (a) no plain version
+    ran; (b) the VIO launched K4, K8 and K9 VIO_REJECT_LAUNCHES times per
+    reject step (>= 8 correspondences) besides the front-end's launches,
+    and every kernel of `path_kernels` launched; (c) the recorded reject
+    step called each wrapper VIO_REJECT_LAUNCHES times and the front-end
+    each as often as it launched, and every recorded call equals its
+    plain version on the same tensors: exactly, K6 by its contract on the
+    path's samples (`check_fivept`, NaN/finite pattern gated). Returns
+    the VIO's launches."""
+    launches, fe = box["launches"], box["fe_launches"]
+    if box["ran"]:
+        fail(f"{what}: main() ran plain versions {box['ran']}")
+    vio_launches = {n: c - fe.get(n, 0) for n, c in launches.items()}
+    want = {n: VIO_REJECT_LAUNCHES.get(n, 0) * n_rej for n in launches}
+    if vio_launches != want:
+        fail(f"{what}: VIO launched {vio_launches}, expected {want} for "
+             f"{n_rej} reject steps")
+    idle = [n for n in path_kernels if launches.get(n, 0) == 0]
+    if idle:
+        fail(f"{what}: kernels of the path never launched: {idle}")
+    plain = path_wrappers()
+    for key, label, expect in (
+            ("reject_calls", "VIO reject", VIO_REJECT_LAUNCHES),
+            ("fe_calls", "front-end", {n: c for n, c in fe.items() if c})):
+        calls = box[key]
+        n_calls = {n: sum(c[0] == n for c in calls) for n in expect}
+        if n_calls != expect or len(calls) != sum(expect.values()):
+            fail(f"{what}: the {label} calls recorded {n_calls}, expected "
+                 f"{expect}")
+        log(f"{what}: the {label} calls ({len(calls)}), each against its "
+            f"plain version on the same tensors (limit: exact equality; "
+            f"K6 its NaN/finite pattern, the rest reported)")
+        for name, a, k, got in calls:
+            where = f"{label}, {'x'.join(map(str, a[0].shape))}"
+            ref = plain_over_subbatches(plain[name][2], a, k)
+            if name == "fivept_models":
+                check_fivept(where, got, ref, k["gn_iters"], gated=False)
+            else:
+                check(name, got, ref, where)
+    return vio_launches
+
+
 def vio_phase(dev, profile: bool, check) -> dict:
     """(g) the port's CLI, `cli.run.main(--mode vio-sim)`, at 640 x 480,
     300 features, window 25, 6 robots x VIO_STEPS frames. Gates: (1) loops
@@ -1856,12 +2127,13 @@ def vio_phase(dev, profile: bool, check) -> dict:
     log tree; (2) no plain version runs inside main(); (3) inside main(),
     K4, K8 and K9 launch 4, 1 and 1 times per keyframe whose reject step
     ran (>= 8 correspondences) besides the front-end's launches, and every
-    kernel of the path launches; (4) the K4, K8 and K9 calls of one
-    keyframe's reject step at full width equal their plain versions on
-    the same tensors; (5) two card runs of one robot's pipeline over 20
-    frames at full width give the same bits; (6) card and CPU at the JAX
-    e2e test's size both pass (1), each robot's translation APE within
-    0.15 m of the other's; (7) BoW weight span under 2^22 in every run.
+    kernel of the path launches; (4) the kernel calls of one keyframe's
+    reject step and of the front-end, recorded inside main(), equal their
+    plain versions on the same tensors (`vio_path_gates`); (5) two card
+    runs of one robot's pipeline over 20 frames at full width give the
+    same bits; (6) card and CPU at the JAX e2e test's size both pass (1),
+    each robot's translation APE within 0.15 m of the other's; (7) BoW
+    weight span under 2^22 in every run.
     (1) also bounds every relative rotation of consecutive keyframes
     against the ground truth's (VIO_REL_ROT_MAX). Returns the stage
     entries."""
@@ -1870,61 +2142,38 @@ def vio_phase(dev, profile: bool, check) -> dict:
     import tempfile
 
     from kimera_multi_tpu_torch.cli import run
-    from kimera_multi_tpu_torch.frontend import batched
     from kimera_multi_tpu_torch.io import render
-    from kimera_multi_tpu_torch.kernels import _build, gather, score
     from kimera_multi_tpu_torch.vio import pipeline, tracking
 
     tmp = tempfile.mkdtemp(prefix="kmt_vio_")
     try:
         # ---- the run, launches counted apart for the front-end ---------
-        fe_launches: dict = {}
-
-        def count_fe(orig):
-            def wrapped(self, *a, **k):
-                before = dict(_build.launches)
-                res = orig(self, *a, **k)
-                fe_launches.update({n: c - before[n] for n, c in
-                                    _build.launches.items()})
-                return res
-            return wrapped
-
         log_dir = os.path.join(tmp, "full")
-        with patched(batched.BatchedFrontend, "process_all", count_fe), \
-                plain_tripwire() as ran:
+        with recorded_path(VIO_RECORD_KF) as box:
             torch.cuda.reset_peak_memory_stats()
-            _build.reset_launches()
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = run.main(VIO_ARGS + ["--log-dir", log_dir])
             torch.cuda.synchronize()
             vio_sim_ms = (time.perf_counter() - t) * 1e3
-            launches = dict(_build.launches)
+        launches, fe_launches = box["launches"], box["fe_launches"]
         peak_mb = torch.cuda.max_memory_allocated() / 1e6
         st = out["stages"]
         n_rej = sum(s.n_corresp >= 8 for rl in out["rejection_logs"]
                     for s in rl)
-        vio_launches = {n: c - fe_launches.get(n, 0)
-                        for n, c in launches.items()}
         kf_ms = np.asarray(st["vio_frame_s"]) * 1e3
         log(f"vio-sim: main({' '.join(VIO_ARGS)}) in {vio_sim_ms:.0f} ms; "
             f"stages (s) { {k: v for k, v in st.items() if k != 'vio_frame_s'} }"
             f"; keyframe ms mean {kf_ms.mean():.1f} p90 "
             f"{np.percentile(kf_ms, 90):.1f}; launches {launches} (front-end "
             f"{fe_launches}); {n_rej} reject steps; plain versions run: "
-            f"{ran}; peak {peak_mb:.0f} MB")
-        ape, rot = vio_gate1(out, log_dir, N_ROBOTS, "full width")  # 1, 7
-        if ran:                                                    # 2
-            fail(f"vio-sim: main() ran plain versions {ran}")
-        want = {n: VIO_REJECT_LAUNCHES.get(n, 0) * n_rej for n in launches}
-        if vio_launches != want:                                   # 3
-            fail(f"vio-sim: VIO launched {vio_launches}, expected {want} "
-                 f"for {n_rej} reject steps")
-        idle = [n for n in VIO_PATH_KERNELS if launches.get(n, 0) == 0]
-        if idle:
-            fail(f"vio-sim: kernels of the path never launched: {idle}")
+            f"{box['ran']}; peak {peak_mb:.0f} MB")
+        ape, rot = vio_gate1(out, log_dir, N_ROBOTS,
+                              "vio-sim full width")  # 1, 7
+        vio_path_gates(box, n_rej, PATH_KERNELS, "vio-sim", check)  # 2 - 4
+        del box
 
-        # ---- one robot at full width: stages, recorded calls, bits -----
+        # ---- one robot at full width: stages, bits ---------------------
         cfg = run.vio_sim_config(VIO_WIDTH, VIO_HEIGHT, VIO_FEATURES,
                                  VIO_WINDOW)
         seq = render.render_sequence(
@@ -1952,28 +2201,6 @@ def vio_phase(dev, profile: bool, check) -> dict:
                 return wrapped
             return make
 
-        calls, rec = [], {"on": False, "n": 0}
-
-        def record_reject(orig):
-            def wrapped(*a, **k):
-                rec["on"] = rec["n"] == VIO_RECORD_KF
-                rec["n"] += 1
-                try:
-                    return orig(*a, **k)
-                finally:
-                    rec["on"] = False
-            return wrapped
-
-        def recorder(name):
-            def make(orig):
-                def wrapped(*a):
-                    got = orig(*a)
-                    if rec["on"]:
-                        calls.append((name, a, got))
-                    return got
-                return wrapped
-            return make
-
         P = pipeline.VioPipeline
         hooks = [patched(P, "_klt", timed("klt")),
                  patched(P, "_stereo", timed("stereo")),
@@ -1982,32 +2209,12 @@ def vio_phase(dev, profile: bool, check) -> dict:
                  patched(pipeline.desc_mod, "describe", timed("describe")),
                  patched(P, "_reject", timed("reject")),
                  patched(P, "_preintegrate_buffer", timed("preintegrate")),
-                 patched(P, "_optimize_window", timed("smooth")),
-                 patched(P, "_reject", record_reject),
-                 patched(gather, "sample_gather_perm_t",
-                         recorder("sample_gather_perm_t")),
-                 patched(score, "rigid_counts", recorder("rigid_counts")),
-                 patched(score, "essential_counts",
-                         recorder("essential_counts"))]
+                 patched(P, "_optimize_window", timed("smooth"))]
         vio1, _ = vio_robot_run(dev, seq, cfg, VIO_DET_FRAMES, hooks)
         n_kf = len(vio1.keyframes)
         stage_ms = {k: v / n_kf * 1e3 for k, v in stage_s.items()}
         log(f"vio, one robot at full width: {n_kf} keyframes; ms a keyframe "
             f"by stage (synchronised) {stage_ms}")
-        ref = {"sample_gather_perm_t": lambda d, p, o, inv:
-               gather.sample_gather_perm_t_ref(d, p, o),
-               "rigid_counts": score.rigid_counts_ref,
-               "essential_counts": score.essential_counts_ref}
-        n_calls = {n: sum(c[0] == n for c in calls) for n in ref}
-        if n_calls != VIO_REJECT_LAUNCHES:                         # 4
-            fail(f"vio: keyframe {VIO_RECORD_KF}'s reject step called "
-                 f"{n_calls}, expected {VIO_REJECT_LAUNCHES}")
-        log(f"vio: keyframe {VIO_RECORD_KF}'s reject step, each kernel call "
-            f"against its plain version on the same tensors (limit: exact "
-            f"equality)")
-        for name, a, got in calls:
-            check(name, got, ref[name](*a),
-                  f"VIO reject, {'x'.join(map(str, a[0].shape))}")
         vio2, kf_ms2 = vio_robot_run(dev, seq, cfg, VIO_DET_FRAMES)
         same = {f: all(np.array_equal(getattr(a, f), getattr(b, f))
                        for a, b in zip(vio1.keyframes, vio2.keyframes))
@@ -2092,7 +2299,8 @@ def vio_phase(dev, profile: bool, check) -> dict:
             t = time.perf_counter()
             o = run.main(VIO_SMALL_ARGS + ["--device", d, "--log-dir", ld])
             ms = (time.perf_counter() - t) * 1e3
-            small[d] = vio_gate1(o, ld, 2, f"2 x 16 on the {d}") + (ms, o)
+            small[d] = vio_gate1(o, ld, 2, f"vio-sim 2 x 16 on the {d}") + (
+                ms, o)
         diff = [abs(a.rmse_trans - b.rmse_trans)
                 for a, b in zip(small[str(dev)][0], small["cpu"][0])]
         log(f"vio-sim 2 x 16: card {small[str(dev)][2]:.0f} ms, CPU "
@@ -2111,6 +2319,231 @@ def vio_phase(dev, profile: bool, check) -> dict:
             vio_small_rel_rot_max={d: v[1].tolist()
                                    for d, v in small.items()},
             vio_small_loops={d: v[3]["n_loops"] for d, v in small.items()})
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------- euroc run
+# the `euroc` run of the port's CLI on three sessions rendered at EuRoC's
+# published camera (cam0: 752 x 480, intrinsics 458.654, 457.296, 367.215,
+# 248.375; stereo baseline 0.110 m; camera 20 Hz, IMU 200 Hz), staggered by
+# 20 frames on one arc so later sessions revisit earlier places; depth is
+# cut from a real session's 2,000 - 3,700 frames to 40 for the time limit
+EUROC_W, EUROC_H = 752, 480
+EUROC_INTR = (458.654, 457.296, 367.215, 248.375)
+EUROC_BASELINE = 0.110
+EUROC_CAM_HZ, EUROC_IMU_HZ = 20.0, 200.0
+EUROC_STEPS, EUROC_STAGGER, EUROC_SESSIONS = 40, 20, 3
+EUROC_ARGS = ["--mode", "euroc", "--steps", str(EUROC_STEPS), "--seed", "0"]
+# the converter's 96 features are no more than twice the 5-point gate's 64
+# preselect points, so the gate scores every hypothesis, as the JAX
+# package's does (kernels/ransac.py, ransac_essential_5pt): K3 and K7 are
+# not on this path
+EUROC_PATH_KERNELS = tuple(k for k in PATH_KERNELS
+                           if k not in ("sample_gather_t", "presel_counts"))
+
+
+def euroc_sessions(dev, d: str) -> list:
+    """Session 0 an ASL tree of PNG frames (the port's `png.write_png`),
+    session 1 an ASL tree of PGM frames, session 2 a rosbag1 file (the
+    port's `rosbag.BagWriter`), each EUROC_STEPS frames of one rendered
+    arc, EUROC_STAGGER frames apart, with the true attitudes in the
+    ground truth."""
+    import os
+
+    from kimera_multi_tpu_torch.io import record, render
+    from kimera_multi_tpu_torch.vio.undistort import CameraModel
+
+    fu, fv, cu, cv = EUROC_INTR
+    rig = render.StereoRig(cam=CameraModel(fx=fu, fy=fv, cx=cu, cy=cv),
+                           H=EUROC_H, W=EUROC_W, baseline=EUROC_BASELINE)
+    n = EUROC_STAGGER * (EUROC_SESSIONS - 1) + EUROC_STEPS
+    seq = render.render_sequence(
+        render.make_scene(seed=0, n_points=1200), rig, n_frames=n,
+        rate_hz=EUROC_CAM_HZ, imu_rate_hz=EUROC_IMU_HZ, speed=0.6,
+        yaw_rate=0.1, device=dev)
+    w = lambda k: dict(first=k * EUROC_STAGGER, n=EUROC_STEPS)
+    return [
+        record.write_asl_session(os.path.join(d, "session0"), seq,
+                                 EUROC_INTR, EUROC_BASELINE,
+                                 image_format="png", **w(0)),
+        record.write_asl_session(os.path.join(d, "session1"), seq,
+                                 EUROC_INTR, EUROC_BASELINE, **w(1)),
+        record.write_bag_session(os.path.join(d, "session2.bag"), seq,
+                                 EUROC_INTR, EUROC_BASELINE, **w(2))]
+
+
+def png_adaptive(img: np.ndarray) -> tuple:
+    """An 8-bit grayscale PNG of `img` (H, W) uint8 whose rows take
+    libpng's adaptive filter choice: of the five filters, the one whose
+    filtered bytes, read as signed, have the least sum of magnitudes.
+    Returns (the file's bytes, rows per filter type)."""
+    import struct
+    import zlib
+
+    x = img.astype(np.int16)
+    h, w = x.shape
+    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cand = (np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth])
+            & 255).astype(np.uint8)                              # (5, h, w)
+    f = np.abs(cand.view(np.int8).astype(np.int32)).sum(-1).argmin(0)
+    rows = np.concatenate([f[:, None].astype(np.uint8),
+                           cand[f, np.arange(h)]], 1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b"")), np.bincount(f, minlength=5).tolist()
+
+
+def euroc_phase(dev, check) -> dict:
+    """(h) the port's CLI, `cli.run.main(--mode euroc)`, over
+    `euroc_sessions` (an ASL tree of PNG frames, one of PGM frames, a
+    bag). Gates: (1) 120 keyframes (every frame is one), at least one
+    inter-robot loop, each robot's APE translation RMSE < 0.5 m, the
+    relative rotations of consecutive keyframes within VIO_REL_ROT_MAX of
+    the ground truth's, the BoW weight span under 2^22, the log tree's
+    files and headers; (2) no plain version runs inside main(); (3) K4,
+    K8 and K9 launch 4, 1 and 1 times a reject step besides the
+    front-end's launches, and every kernel of the path launches
+    (EUROC_PATH_KERNELS); (4) the kernel calls of one reject step and of
+    the front-end, recorded inside main(), equal their plain versions on
+    the same tensors (`vio_path_gates`); (5) the converter on the card,
+    `io.convert.main(["--euroc", session 1, ...])`, writes obs_robot0.npz
+    equal bit for bit to the keyframe products session 1 gave inside
+    main(); (6) a frame written as a PNG with libpng's adaptive row
+    filters reads back equal, and its decode is timed beside the run's
+    PGM and PNG. Returns the stage entries."""
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.cli import run
+    from kimera_multi_tpu_torch.io import convert, dataset, replay
+
+    tmp = tempfile.mkdtemp(prefix="kmt_euroc_")
+    try:
+        t = time.perf_counter()
+        roots = euroc_sessions(dev, tmp)
+        write_ms = (time.perf_counter() - t) * 1e3
+        log_dir = os.path.join(tmp, "logs")
+        args = EUROC_ARGS + ["--euroc-roots", *roots, "--log-dir", log_dir,
+                             "--device", str(dev)]
+        with recorded_path(VIO_RECORD_KF) as box:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run.main(args)
+            torch.cuda.synchronize()
+            euroc_ms = (time.perf_counter() - t) * 1e3
+        launches, fe_launches = box["launches"], box["fe_launches"]
+        st = out["stages"]
+        n_rej = sum(s.n_corresp >= 8 for rl in out["rejection_logs"]
+                    for s in rl)
+        kf_ms = np.asarray(st["vio_frame_s"]) * 1e3
+        log(f"euroc: {EUROC_SESSIONS} sessions of {EUROC_STEPS} frames at "
+            f"{EUROC_W} x {EUROC_H} written in {write_ms:.0f} ms; main("
+            f"{' '.join(EUROC_ARGS)} --euroc-roots <png tree> <pgm tree> "
+            f"<bag>) in {euroc_ms:.0f} ms; stages (s) "
+            f"{ {k: v for k, v in st.items() if k != 'vio_frame_s'} }; "
+            f"keyframe ms mean {kf_ms.mean():.1f} p90 "
+            f"{np.percentile(kf_ms, 90):.1f}; launches {launches} "
+            f"(front-end {fe_launches}); {n_rej} reject steps; plain "
+            f"versions run: {box['ran']}")
+        T = EUROC_STEPS
+        if out["n_keyframes"] != EUROC_SESSIONS * T:                # 1
+            fail(f"euroc: {out['n_keyframes']} keyframes, expected "
+                 f"{EUROC_SESSIONS * T}")
+        ape, rot = vio_gate1(out, log_dir, EUROC_SESSIONS, "euroc")
+        check_log_tree(log_dir, EUROC_SESSIONS, T, "euroc")
+        if not os.path.isdir(os.path.join(log_dir, "bags", "bag_robot2",
+                                          "mav0")):
+            fail("euroc: the bag was not extracted to an ASL tree")
+        vio_path_gates(box, n_rej, EUROC_PATH_KERNELS, "euroc",
+                       check)                                      # 2 - 4
+        del box
+
+        # (5) the converter on the card, on session 1
+        conv_dir = os.path.join(tmp, "converted")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = convert.main(["--euroc", roots[1], "--out", conv_dir,
+                           "--max-frames", str(EUROC_STEPS), "--device",
+                           str(dev)])
+        torch.cuda.synchronize()
+        convert_ms = (time.perf_counter() - t) * 1e3
+        got = replay.load_observations(replay.obs_path(conv_dir, 0))
+        ref = out["observations"][1]
+        same = {f: np.array_equal(getattr(got, f), getattr(ref, f))
+                for f in ref._fields}
+        log(f"euroc: io.convert.main(--euroc session1) rc {rc} in "
+            f"{convert_ms:.0f} ms; obs_robot0.npz equal to main()'s "
+            f"products of session 1: {same}")
+        if rc != 0 or not all(same.values()):                     # 5
+            fail("euroc: the converter's products differ from the run's")
+
+        # (6) image decode on the host, per 752 x 480 image: the run's
+        # PGM and its RGB PNG (write_png: filter 0 on every row), and the
+        # same frame as grayscale with libpng's adaptive row filters
+        # (Sub, Up, Average, Paeth), as real EuRoC frames are written
+        sess0, sess1 = (dataset.load_euroc(r) for r in roots[:2])
+        img = convert.load_image(sess1.cam_files[0]).astype(np.uint8)
+        adaptive = os.path.join(tmp, "adaptive.png")
+        data, filters = png_adaptive(img)
+        with open(adaptive, "wb") as f:
+            f.write(data)
+        if not np.array_equal(convert.load_image(adaptive), img):   # 6
+            fail("euroc: a PNG with adaptive row filters decodes wrong")
+        decode_ms = {}
+        for name, path in (("pgm", sess1.cam_files[0]),
+                           ("png_rgb_filter0", sess0.cam_files[0]),
+                           ("png_gray_adaptive", adaptive)):
+            ts = []
+            for _ in range(11):
+                t = time.perf_counter()
+                convert.load_image(path)
+                ts.append((time.perf_counter() - t) * 1e3)
+            decode_ms[name] = float(np.median(ts))
+        log(f"euroc: load_image of one {EUROC_W} x {EUROC_H} image, median "
+            f"of 11 (ms): {decode_ms}; the adaptive PNG's rows per filter "
+            f"type (None, Sub, Up, Average, Paeth) {filters}")
+
+        res = {
+            "euroc_args": " ".join(EUROC_ARGS),
+            "euroc_camera": f"{EUROC_W}x{EUROC_H} {EUROC_INTR} baseline "
+                            f"{EUROC_BASELINE} {EUROC_CAM_HZ:g} Hz / IMU "
+                            f"{EUROC_IMU_HZ:g} Hz",
+            "euroc_write_sessions_ms": write_ms, "euroc_ms": euroc_ms,
+            "euroc_bags_ms": st["bags_s"] * 1e3,
+            "euroc_io_ms": st["io_s"] * 1e3,
+            "euroc_vio_ms": st["vio_s"] * 1e3,
+            "euroc_keyframes": out["n_keyframes"],
+            "euroc_keyframe_ms_mean": float(kf_ms.mean()),
+            "euroc_keyframe_ms_p90": float(np.percentile(kf_ms, 90)),
+            "euroc_fe_ms": st["frontend_s"] * 1e3,
+            "euroc_build_pose_graph_ms": st["build_pose_graph_s"] * 1e3,
+            "euroc_pcm_ms": st["pcm_s"] * 1e3,
+            "euroc_robust_pgo_ms": st["robust_pgo_s"] * 1e3,
+            "euroc_logs_ms": st["logs_s"] * 1e3,
+            "euroc_n_loops": out["n_loops"],
+            "euroc_n_inter_loops": out["n_inter_loops"],
+            "euroc_bow_weight_span": out["bow_weight_span"],
+            "euroc_reject_steps": n_rej, "euroc_launches": launches,
+            "euroc_fe_launches": fe_launches,
+            "euroc_ape_rmse_trans": [a.rmse_trans for a in ape],
+            "euroc_rel_rot_max": rot.tolist(),
+            "euroc_convert_ms": convert_ms,
+            "euroc_load_image_ms": decode_ms,
+            "euroc_png_adaptive_filters": filters,
+        }
         return res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2942,8 +3375,12 @@ def main() -> None:
     stages.update(sim_phase(dev, profile, stages["fe_launches"]))
     # ----------------------------------------------------------------- 10
     stages.update(vio_phase(dev, profile, check))
+    # ----------------------------------------------------------------- 11
+    stages.update(euroc_phase(dev, check))
     for k in kernels:
         k["launches_vio_sim"] = stages["vio_launches"].get(k["name"], 0)
+        k["launches_euroc"] = stages["euroc_launches"].get(k["name"], 0)
+        k["launches_replay"] = stages["replay_launches"].get(k["name"], 0)
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

@@ -29,9 +29,14 @@ Layer map (what is ported so far):
   io/        synthetic keyframe stores, candidate pairs, multi-robot pose
              graphs and the simulated multi-robot world (numpy);
              reference-schema logs; the rendered stereo + IMU sequence
-             (render); reference parameter files (config)
+             (render); reference parameter files (config); recorded
+             sessions: EuRoC ASL trees (dataset), rosbag1 files (rosbag),
+             PNG (png), the converter to observation streams (convert),
+             the replay gate (replay), rendered sequences written as
+             sessions (record)
   eval/      absolute pose error
-  cli/       run.py: the `sim` and `vio-sim` runs end to end
+  cli/       run.py: the `sim`, `vio-sim` and `euroc` runs end to end;
+             replay.py: the replay acceptance gate
   convert    state handed over from the JAX package as numpy (VIO
              configs, states, windows and keyframes too)
   entry      the fused SLAM step: verification, then one RBCD round

@@ -1,11 +1,15 @@
 """End-to-end run entry point of the port (the JAX package's cli/run.py:
-its `sim` and `vio-sim` modes with the single-device back-end).
+its `sim`, `vio-sim` and `euroc` modes with the single-device back-end).
 
     python -m kimera_multi_tpu_torch.cli.run --mode sim --robots 2 \
-        --steps 30 --features 64 --seed 1 --log-dir LOGS [--device cpu]
+        --steps 30 --features 64 --seed 1 --log-dir LOGS [--device cpu] \
+        [--save-obs OBS]
     python -m kimera_multi_tpu_torch.cli.run --mode vio-sim --robots 2 \
         --steps 16 --seed 0 --log-dir LOGS [--vio-width 640 \
         --vio-height 480 --vio-features 300 --vio-window 25] [--device cpu]
+    python -m kimera_multi_tpu_torch.cli.run --mode euroc \
+        --euroc-roots SESSION0 SESSION1 ROBOT2.bag --steps 60 \
+        --log-dir LOGS [--device cpu]
 
 sim: synthetic sensor world -> vocabulary -> batched front-end (BoW
 detection, RANSAC verification) -> pose graph (optionally coarsened to
@@ -16,8 +20,15 @@ preintegration, outlier rejection, fixed-lag smoother) -> the batched
 front-end on the keyframes' descriptors, bearings and landmarks -> pose
 graph from the VIO odometry and the loops -> PCM + GNC robust PGO -> logs
 + APE against ground truth at keyframe times.
-Both run on the card unless `--device cpu` is given; asking for the card
-where there is none raises.
+euroc: recorded sessions, one per robot (EuRoC ASL trees, or rosbag1
+files extracted to ASL trees under LOGS/bags/): the VIO pipeline over each
+session's first `--steps` frames (io/convert.py) -> the batched front-end
+-> pose graph from the VIO odometry -> PCM + GNC robust PGO -> logs + APE
+against each session's ground truth (suppressed for a session without).
+`--save-obs DIR` (sim) writes each robot's observation stream for the
+replay gate (cli/replay.py).
+Every mode runs on the card unless `--device cpu` is given; asking for the
+card where there is none raises.
 
 Outputs under --log-dir follow the reference contract:
   robot<r>/distributed/kimera_distributed_poses_tum_<k>.tum
@@ -29,7 +40,8 @@ Outputs under --log-dir follow the reference contract:
   ape_robot<r>.csv
 
 The JAX package's other modes and flags are not ported yet; each exits
-non-zero with a message naming its ROADMAP item.
+non-zero with a message naming the module it needs (M10 - M14, ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -39,27 +51,19 @@ import os
 import sys
 import time
 
-# mode / flag -> what is missing (ROADMAP Queue 1)
+# mode / flag -> what is missing, by module code (ROADMAP Queue 1)
 _NOT_PORTED = {
-    "sim-sharded": "the sharded back-end (ROADMAP Queue 1 item 6, M11)",
-    "euroc": "VIO on recorded EuRoC sessions, io/dataset.py and "
-             "io/convert.py (ROADMAP Queue 1 item 7, M12 remainder)",
-    "--euroc-roots": "VIO on recorded EuRoC sessions, io/dataset.py and "
-                     "io/convert.py (ROADMAP Queue 1 item 7, M12 "
-                     "remainder)",
-    "--lc-images": "loop-closure image evidence, eval/lc_forensics.py and "
-                   "io/png.py (ROADMAP Queue 1 item 9, M14)",
-    "--backend sharded": "the sharded back-end (ROADMAP Queue 1 item 6, "
-                         "M11)",
+    "sim-sharded": "the sharded back-end (M11)",
+    "--lc-images": "loop-closure image evidence, eval/lc_forensics.py "
+                   "(M14)",
+    "--backend sharded": "the sharded back-end (M11)",
     "--frontend sequential": "the sequential front-end DistributedFrontend "
-                             "(ROADMAP Queue 1 item 4, M10 remainder)",
-    "--artifacts": "meshing (ROADMAP Queue 1 item 8, M13)",
-    "--checkpoint": "round-state checkpoints (ROADMAP Queue 1 item 6, M11)",
-    "--resume": "round-state checkpoints (ROADMAP Queue 1 item 6, M11)",
-    "--profile": "the sharded rounds' profile (ROADMAP Queue 1 item 6, M11)",
-    "--chain-refine": "the chain solver (ROADMAP Queue 1 item 6, M11)",
-    "--save-obs": "observation streams for replay (ROADMAP Queue 1 item 9, "
-                  "M14)",
+                             "(M10)",
+    "--artifacts": "meshing (M13)",
+    "--checkpoint": "round-state checkpoints (M11)",
+    "--resume": "round-state checkpoints (M11)",
+    "--profile": "the sharded rounds' profile (M11)",
+    "--chain-refine": "the chain solver (M11)",
 }
 
 
@@ -91,8 +95,13 @@ def main(argv=None):
     p.add_argument("--resume", default=None)
     p.add_argument("--profile", default=None, metavar="DIR")
     p.add_argument("--chain-refine", action="store_true")
-    p.add_argument("--save-obs", default=None)
-    p.add_argument("--euroc-roots", nargs="+", default=None)
+    p.add_argument("--save-obs", default=None,
+                   help="sim: write each robot's observation stream "
+                        "(obs_robot<k>.npz) here for cli/replay.py")
+    p.add_argument("--euroc-roots", nargs="+", default=None,
+                   help="euroc: one recorded session per robot, an EuRoC "
+                        "ASL directory (containing mav0/) or a rosbag1 "
+                        "file")
     p.add_argument("--lc-images", type=float, default=None,
                    metavar="DIST_M")
     p.add_argument("--vio-width", type=int, default=128,
@@ -116,13 +125,17 @@ def main(argv=None):
         ("--artifacts", args.artifacts), ("--checkpoint", args.checkpoint),
         ("--resume", args.resume), ("--profile", args.profile),
         ("--chain-refine", args.chain_refine),
-        ("--save-obs", args.save_obs), ("--euroc-roots", args.euroc_roots),
         ("--lc-images", args.lc_images is not None)) if on]
     if asked:
         raise SystemExit(f"kimera_multi_tpu_torch.cli.run: {asked[0]} is "
                          f"not ported yet: {_NOT_PORTED[asked[0]]}")
+    if args.save_obs and args.mode != "sim":
+        print("[run] --save-obs is read by --mode sim only; ignored",
+              file=sys.stderr)
     if args.mode == "vio-sim":
         return run_vio_sim(args)
+    if args.mode == "euroc":
+        return run_euroc(args)
     return run_sim(args)
 
 
@@ -130,7 +143,8 @@ def run_sim(args):
     """The `sim` mode. Returns dict(ape, n_opt_poses, n_keyframes) as the
     JAX package's run_sim does, and besides: `stages` (seconds on a
     synchronised clock: front-end, build_pose_graph, submaps, pcm,
-    robust_pgo, logs), `frontend` (the front-end's stats), `loops` (the
+    robust_pgo, logs; save_obs with `--save-obs`), `frontend` (the
+    front-end's stats), `loops` (the
     accepted `VerifiedLC` records) and `backend`
     (the pose graph `edges`, PCM's `consensus` and `frame_ok`, the final
     `weights` and `params`, before any submap expansion)."""
@@ -166,6 +180,23 @@ def run_sim(args):
     stages["frontend_s"] = backend.synced_clock(dev) - t
     print(f"[run] committed loop closures: {len(fe.loops)} (attempts "
           f"{len(fe.lcd_attempts)})", file=sys.stderr)
+
+    if args.save_obs:
+        from ..io import replay as replay_mod
+
+        t = time.perf_counter()
+        for r in range(args.robots):
+            replay_mod.save_observations(
+                replay_mod.obs_path(args.save_obs, r),
+                replay_mod.ObservationStream(
+                    descriptors=world.descriptors[r],
+                    bearings=world.bearings_local[r],
+                    landmarks=world.landmarks_local[r],
+                    valid=world.obs_valid[r],
+                    timestamps=world.timestamps[r]))
+        stages["save_obs_s"] = time.perf_counter() - t
+        print(f"[run] observation streams saved to {args.save_obs}",
+              file=sys.stderr)
 
     t = backend.synced_clock(dev)
     edges = fe.build_pose_graph(world.R_odo, world.t_odo)
@@ -277,6 +308,7 @@ def run_vio_sim(args):
     from ..frontend import batched, vocab as vocab_mod
     from ..frontend.dlc import FrontendConfig
     from ..io import render as render_mod
+    from ..io.convert import check_keyframes
     from ..vio import pipeline as vio_pipeline
 
     dev = backend.resolve_device(args.device)
@@ -328,7 +360,7 @@ def run_vio_sim(args):
         # the FINAL keyframe states, not the snapshots process_frame
         # returned: gravity alignment (keyframe 0) and every window
         # re-solve replace entries of vio.keyframes with refined poses
-        assert len(vio.keyframes) == n_kf
+        check_keyframes(vio, n_kf, f"robot {r}")
         kf_all.append(list(vio.keyframes))
         rejection_logs.append(list(vio.rejection_log))
         print(f"[run] robot {r}: VIO produced {n_kf} keyframes "
@@ -368,21 +400,12 @@ def run_vio_sim(args):
     n_inter = sum(1 for lc in fe.loops if lc.robot_a != lc.robot_b)
     print(f"[run] committed loop closures: {len(fe.loops)} ({n_inter} "
           f"inter-robot; attempts {len(fe.lcd_attempts)})", file=sys.stderr)
-    bow_w = fe.compute_bows(desc, val)[1]
-    nz = bow_w > 0
-    has = nz.any(-1)
-    span = float((np.where(nz, bow_w, 0).max(-1)[has]
-                  / np.where(nz, bow_w, np.inf).min(-1)[has]).max()
-                 ) if has.any() else 0.0
+    span = _bow_weight_span(fe, desc, val)
 
     # ---- odometry edges from the VIO keyframe estimates --------------
-    R_odo = np.zeros((Rn, T - 1, 3, 3), np.float32)
-    t_odo = np.zeros((Rn, T - 1, 3), np.float32)
-    for r, kfs in enumerate(kf_all):
-        Ra = np.stack([kf.R for kf in kfs])  # (T, 3, 3)
-        ta = np.stack([kf.t for kf in kfs])
-        R_odo[r] = np.einsum("kji,kjl->kil", Ra[:-1], Ra[1:])
-        t_odo[r] = np.einsum("kji,kj->ki", Ra[:-1], ta[1:] - ta[:-1])
+    R_odo, t_odo = _odometry_edges(
+        [np.stack([kf.R for kf in kfs]) for kfs in kf_all],
+        [np.stack([kf.t for kf in kfs]) for kfs in kf_all])
     t = backend.synced_clock(dev)
     edges = fe.build_pose_graph(R_odo, t_odo)
     stages["build_pose_graph_s"] = backend.synced_clock(dev) - t
@@ -410,6 +433,152 @@ def run_vio_sim(args):
                 gt=dict(R=world.R_gt, t=world.t_gt))
 
 
+def _bow_weight_span(fe, desc, val) -> float:
+    """The largest ratio of a keyframe BoW vector's largest to smallest
+    nonzero weight (detection on the card equals the CPU's while it stays
+    under 2^22, kernels/bow.py)."""
+    import numpy as np
+
+    bow_w = fe.compute_bows(desc, val)[1]
+    nz = bow_w > 0
+    has = nz.any(-1)
+    return float((np.where(nz, bow_w, 0).max(-1)[has]
+                  / np.where(nz, bow_w, np.inf).min(-1)[has]).max()
+                 ) if has.any() else 0.0
+
+
+def _odometry_edges(R_kf: list, t_kf: list):
+    """Relative poses of consecutive keyframes from each robot's keyframe
+    poses (R (T, 3, 3), t (T, 3) world <- body): (R_odo (Rn, T-1, 3, 3),
+    t_odo (Rn, T-1, 3)) float32."""
+    import numpy as np
+
+    Rn, T = len(R_kf), len(R_kf[0])
+    R_odo = np.zeros((Rn, T - 1, 3, 3), np.float32)
+    t_odo = np.zeros((Rn, T - 1, 3), np.float32)
+    for r, (Ra, ta) in enumerate(zip(R_kf, t_kf)):
+        R_odo[r] = np.einsum("kji,kjl->kil", Ra[:-1], Ra[1:])
+        t_odo[r] = np.einsum("kji,kj->ki", Ra[:-1], ta[1:] - ta[:-1])
+    return R_odo, t_odo
+
+
+def run_euroc(args):
+    """The `euroc` mode: recorded sessions -> VIO -> loop-closure
+    front-end -> robust PGO, one session per robot (BASELINE.json config
+    4: EuRoC multi-session as pseudo-multi-robot). `.bag` roots are
+    extracted to ASL trees under `<log-dir>/bags/` first; each session's
+    first `--steps` frames (all with `--steps 0`) run through the VIO
+    pipeline (io/convert.py); the fleet keeps the shortest session's
+    keyframe count. APE is taken against each session's ground truth at
+    keyframe times and suppressed for a session without.
+
+    Returns dict(ape, n_keyframes, n_loops, n_inter_loops) as the JAX
+    package's run_euroc does, and besides: `stages` (seconds: bags,
+    io (image files), vio (the pipelines, synchronised), frontend,
+    build_pose_graph, pcm, robust_pgo, logs; `vio_frame_s`, each
+    keyframe-making frame's time), `rejection_logs`, `loops`,
+    `bow_weight_span`, `backend`, `gt` (R, t, mask) and `observations`
+    (each session's whole ObservationStream, before the common horizon
+    cuts it)."""
+    import numpy as np
+    import torch
+
+    from ..core import backend, lie
+    from ..frontend import batched, vocab as vocab_mod
+    from ..frontend.dlc import FrontendConfig
+    from ..io import convert as convert_mod
+
+    if not args.euroc_roots:
+        raise SystemExit("--mode euroc requires --euroc-roots")
+    dev = backend.resolve_device(args.device)
+    t_start = time.time()
+    stages = dict(bags_s=0.0, io_s=0.0, vio_s=0.0, vio_frame_s=[])
+    Rn = len(args.euroc_roots)
+    max_frames = args.steps or None
+    say = lambda m: print(f"[run] {m}", file=sys.stderr)  # noqa: E731
+    streams, rejection_logs = [], []
+    for r, root in enumerate(args.euroc_roots):
+        # .bag roots become ASL trees first (io/rosbag.py)
+        t = time.perf_counter()
+        root = convert_mod.resolve_session_root(
+            root, os.path.join(args.log_dir, "bags"), r,
+            max_frames=max_frames, log=say)
+        stages["bags_s"] += time.perf_counter() - t
+        st = {}
+        obs, sess, (R_kf, t_kf) = convert_mod.euroc_to_observations(
+            root, max_frames=max_frames, log=say, device=dev, stats=st)
+        stages["io_s"] += st["io_s"]
+        stages["vio_s"] += st["vio_s"]
+        stages["vio_frame_s"] += st["frame_s"]
+        rejection_logs.append(st["rejection_log"])
+        streams.append((obs, sess, R_kf, t_kf))
+        say(f"robot {r}: {root} -> {obs.descriptors.shape[0]} keyframes")
+
+    T = min(s[0].descriptors.shape[0] for s in streams)
+    desc = np.stack([s[0].descriptors[:T] for s in streams])
+    bear = np.stack([s[0].bearings[:T] for s in streams])
+    lm = np.stack([s[0].landmarks[:T] for s in streams])
+    val = np.stack([s[0].valid[:T] for s in streams])
+    ts_kf = np.stack([s[0].timestamps[:T] for s in streams])
+
+    corpus = desc[val].reshape(-1, 32)
+    sub = corpus[:: max(1, len(corpus) // 4000)]
+    voc = vocab_mod.build_vocabulary(sub, k=8, depth=3, seed=args.seed,
+                                     device=dev)
+    fe = batched.BatchedFrontend(Rn, T, voc,
+                                 FrontendConfig(base_seed=args.seed),
+                                 device=dev)
+    say("front-end (batched detect + verify) on EuRoC keyframes...")
+    t = backend.synced_clock(dev)
+    fe_stats = fe.process_all(desc, bear, lm, val)
+    stages["frontend_s"] = backend.synced_clock(dev) - t
+    n_inter = sum(1 for lc in fe.loops if lc.robot_a != lc.robot_b)
+    say(f"committed loop closures: {len(fe.loops)} ({n_inter} inter-robot)")
+    span = _bow_weight_span(fe, desc, val)
+
+    R_odo, t_odo = _odometry_edges([s[2][:T] for s in streams],
+                                   [s[3][:T] for s in streams])
+    t = backend.synced_clock(dev)
+    edges = fe.build_pose_graph(R_odo, t_odo)
+    stages["build_pose_graph_s"] = backend.synced_clock(dev) - t
+
+    # ground truth at keyframe times, from the sessions'
+    # state_groundtruth files (the first sample at or after the keyframe);
+    # a robot whose session has none gets gt_mask False and no APE
+    R_gt = np.broadcast_to(np.eye(3, dtype=np.float32), (Rn, T, 3, 3)).copy()
+    t_gt = np.zeros((Rn, T, 3), np.float32)
+    gt_mask = [len(s[1].gt_ts) > 0 for s in streams]
+    for r, (_, sess, _, _) in enumerate(streams):
+        if not gt_mask[r]:
+            continue
+        gi = np.clip(np.searchsorted(sess.gt_ts, ts_kf[r]), 0,
+                     len(sess.gt_ts) - 1)
+        t_gt[r] = sess.gt_t[gi]
+        R_gt[r] = lie.quat_to_rot(torch.from_numpy(sess.gt_q[gi])).numpy()
+
+    world = _VioWorld(timestamps=ts_kf, t_gt=t_gt, R_gt=R_gt, R_odo=R_odo,
+                      t_odo=t_odo)
+    args.steps = T  # write_logs slices by T
+    args.robots = Rn
+    say("back-end optimization (single device)...")
+    params, weights, dpgo_rows, info = _optimize_backend(
+        args, edges, Rn, T, t_start)
+    stages["pcm_s"] = info.pop("pcm_s")
+    stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+    t = backend.synced_clock(dev)
+    results = write_logs(args, world, fe, params, weights, dpgo_rows,
+                         gt_mask=gt_mask)
+    stages["logs_s"] = backend.synced_clock(dev) - t
+    return dict(ape=results, n_keyframes=Rn * T, n_loops=len(fe.loops),
+                n_inter_loops=n_inter, frontend_stats=fe_stats,
+                stages=stages, rejection_logs=rejection_logs,
+                loops=fe.loops, bow_weight_span=span,
+                backend=dict(info, edges=edges, weights=weights,
+                             params=params),
+                gt=dict(R=R_gt, t=t_gt, mask=gt_mask),
+                observations=[s[0] for s in streams])
+
+
 def _optimize_backend(args, edges, n_robots, ppr, t_start):
     """The single-device robust PGO back-end over `edges` (the JAX
     package's `_optimize_backend(sharded=False)`): odometry
@@ -430,9 +599,10 @@ def _optimize_backend(args, edges, n_robots, ppr, t_start):
     return params, gstate.weights, dpgo_rows, info
 
 
-def write_logs(args, world, fe, params, weights, dpgo_rows):
+def write_logs(args, world, fe, params, weights, dpgo_rows, gt_mask=None):
     """The reference-schema log tree and `ape_robot<r>.csv` per robot;
-    returns {robot: ApeResult}."""
+    returns {robot: ApeResult}. A robot whose `gt_mask` entry is False has
+    no ground truth: its logs are written, its APE is not."""
     import numpy as np
     import torch
 
@@ -504,7 +674,13 @@ def write_logs(args, world, fe, params, weights, dpgo_rows):
         logs.write_dpgo_log_csv(
             os.path.join(rdir, "distributed", "dpgo_log_0.csv"), dpgo_rows)
 
-        # APE against the ground truth (evo_real_time.py's role)
+        # APE against the ground truth (evo_real_time.py's role);
+        # suppressed without one: an APE against a placeholder
+        # identity / zero trajectory would mislead
+        if gt_mask is not None and not gt_mask[r]:
+            print(f"[run] robot {r}: no ground truth in session; APE "
+                  "suppressed", file=sys.stderr)
+            continue
         res = ape_mod.ape(
             params.t[sl], params.R[sl],
             torch.from_numpy(np.asarray(world.t_gt[r], np.float32)).to(dev),

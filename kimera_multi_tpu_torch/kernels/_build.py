@@ -9,6 +9,9 @@ of the source and its flags (`nvcc_flags`). All sources are compiled at
 once, one `nvcc` process each. A failed build raises with the compiler's
 output; nothing falls back to another path.
 
+`host_fn` builds host code the same way, with the system C compiler
+(`cc`) instead of `nvcc`: `io/csrc/png.c`, the PNG row filters.
+
 `launches` counts, per kernel, how often a wrapper launched it. `empty`
 (csrc/gather.cu, a kernel that does nothing) is launched only to measure
 the launch floor and is not counted.
@@ -47,6 +50,10 @@ SOURCE_FLAGS = {
     "score.cu": ["-fmad=false"],
     "fivept.cu": ["-fmad=true"],
 }
+
+# host C sources (no CUDA), compiled by `cc`
+HOST_CSRC_DIR = os.path.join(_PKG, "io", "csrc")
+HOST_FLAGS = ["-O2", "-std=c99", "-shared", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -194,3 +201,32 @@ def check_cuda(name: str, t, dtype, shape=None) -> None:
                 s is not None and s != d for s, d in zip(shape, t.shape)):
             raise ValueError(
                 f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
+def host_fn(src: str, name: str, argtypes: list):
+    """The C function `name` of the host source `io/csrc/<src>`, compiled
+    at first use by the system C compiler into BUILD_DIR (keyed by a hash
+    of the source and HOST_FLAGS) and loaded with ctypes. Raises where
+    there is no C compiler or the build fails."""
+    if name in _fns:
+        return _fns[name]
+    path = os.path.join(HOST_CSRC_DIR, src)
+    with open(path, "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"libkmt_{os.path.splitext(src)[0]}_"
+                                  f"{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        cc = shutil.which("cc") or shutil.which("gcc")
+        if cc is None:
+            raise RuntimeError(f"no C compiler (cc) found to build {path}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        p = subprocess.run([cc, *HOST_FLAGS, "-o", tmp, path],
+                           capture_output=True, text=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"cc failed on {path}:\n{p.stdout}{p.stderr}")
+        os.replace(tmp, out)
+    fn = getattr(ctypes.CDLL(out), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _fns[name] = fn
+    return fn

@@ -146,12 +146,14 @@ def test_sim_submaps(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--mode", "sim-sharded"], "M11"),
-    (["--mode", "vio-sim", "--euroc-roots", "x"], "M12"),
-    (["--mode", "euroc"], "M12"), (["--backend", "sharded"], "M11"),
+    (["--mode", "euroc", "--euroc-roots", "x", "--backend", "sharded"],
+     "M11"),
+    (["--mode", "euroc"], "requires --euroc-roots"),
+    (["--backend", "sharded"], "M11"),
     (["--frontend", "sequential"], "M10"), (["--artifacts"], "M13"),
     (["--checkpoint", "x"], "M11"), (["--resume", "x"], "M11"),
     (["--profile", "x"], "M11"), (["--chain-refine"], "M11"),
-    (["--save-obs", "x"], "M14")])
+    (["--lc-images", "30"], "M14")])
 def test_cli_refuses_what_is_not_ported(extra, item, tmp_path):
     with pytest.raises(SystemExit) as e:
         run.main(ARGS + ["--log-dir", str(tmp_path)] + extra)

@@ -73,7 +73,7 @@ def test_vio_sim_run_end_to_end(tmp_path):
 
 @pytest.mark.parametrize("extra,item", [
     (["--backend", "sharded"], "M11"), (["--lc-images", "30"], "M14"),
-    (["--euroc-roots", "x"], "M12")])
+    (["--artifacts"], "M13")])
 def test_vio_sim_refuses_what_is_not_ported(extra, item, tmp_path):
     with pytest.raises(SystemExit) as e:
         run.main(ARGS + ["--device", "cpu", "--log-dir", str(tmp_path)]
@@ -88,3 +88,87 @@ def test_vio_sim_runs_on_the_card_by_default(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run.main(ARGS + ["--log-dir", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+# ---- the vio-sim run deeper than 30 frames a robot -----------------------
+# VIO alone (no loops, no back-end) over the frame windows of robots 4 and
+# 5 of `--robots 6 --steps 40` (stride 20: frames 80 - 119 and 100 - 139)
+# at the full width: 640 x 480, 300 features, a window of 25. Odometry
+# APE translation RMSE (m) of the final keyframe poses against ground
+# truth at keyframe times, recorded on the CPU by
+#   env JAX_PLATFORMS=cpu python tests/test_torch_vio_sim.py depth jax 4
+#   env JAX_PLATFORMS=cpu python tests/test_torch_vio_sim.py depth port 4
+# (and 5): both packages see the frames the port renders. Both fail the
+# 0.5 m gate on robot 5, the reference the farther: the arc leaves the
+# rendered scene and the stereo gate loses every inlier (0 at its lowest
+# in both), so the cut of chip_smoke.py's vio-sim phase to 30 frames a
+# robot is a behaviour of the reference's scene, not a fault of the port.
+DEPTH_ROBOTS, DEPTH_STEPS, DEPTH_STRIDE = 6, 40, 20
+DEPTH_JAX = {4: 0.1576, 5: 5.4746}
+DEPTH_PORT_CPU = {4: 0.2329, 5: 3.7592}
+
+
+def depth_window_ape(package: str, robot: int, frames: int = DEPTH_STEPS):
+    """Odometry APE of one robot's window at the full width, by `package`
+    ("jax" or "port"), on the CPU."""
+    import sys
+
+    from kimera_multi_tpu_torch import convert
+    from kimera_multi_tpu_torch.eval import ape as ape_mod
+    from kimera_multi_tpu_torch.io import render
+    from kimera_multi_tpu_torch.vio import pipeline
+
+    W, H, feats, win = 640, 480, 300, 25
+    cfg = run.vio_sim_config(W, H, feats, win)
+    f_total = DEPTH_STRIDE * (DEPTH_ROBOTS - 1) + DEPTH_STEPS
+    rig = render.StereoRig(cam=cfg.cam, H=H, W=W, baseline=cfg.baseline)
+    seq = render.render_sequence(
+        render.make_scene(seed=0, n_points=max(350, 4 * feats)), rig,
+        n_frames=f_total, rate_hz=10.0, imu_rate_hz=100.0, speed=0.6,
+        yaw_rate=0.1, device="cpu")
+    if package == "jax":
+        from kimera_multi_tpu.vio import pipeline as jpipe
+
+        jcfg = jpipe.PipelineConfig(
+            cam=jpipe.CameraModel(*cfg.cam), baseline=cfg.baseline,
+            window_size=win, max_features=feats,
+            gftt=jpipe.tracking.GfttParams(*cfg.gftt),
+            klt=jpipe.tracking.KltParams(*cfg.klt),
+            min_intra_keyframe_time=0.0, disparity_threshold=0.0,
+            ransac_iterations=200, min_mono_inliers=8,
+            min_stereo_inliers=4, vio=jpipe.smoother.VioConfig(gn_iters=12),
+            imu=jpipe.imu_mod.ImuParams(gyro_noise=2e-3, accel_noise=2e-2))
+        assert convert.vio_config_from_jax(jcfg) == cfg
+        vio = jpipe.VioPipeline(jcfg)
+    else:
+        vio = pipeline.VioPipeline(cfg, device="cpu")
+    o = robot * DEPTH_STRIDE
+    i = int(np.searchsorted(seq.imu_ts, seq.timestamps[o], side="right"))
+    for k in range(o, o + frames):
+        ts = seq.timestamps[k]
+        while i < len(seq.imu_ts) and seq.imu_ts[i] <= ts:
+            vio.add_imu(seq.imu_ts[i], seq.gyro[i], seq.accel[i])
+            i += 1
+        vio.process_frame(ts, seq.left[k], seq.right[k])
+        print(f"frame {k}: {len(vio.keyframes)} keyframes", file=sys.stderr,
+              flush=True)
+    kf = convert.keyframes_to_numpy(vio.keyframes)
+    gi = np.clip(np.searchsorted(seq.timestamps, kf["timestamp"]), 0,
+                 f_total - 1)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    res = ape_mod.ape(f32(kf["t"]), f32(kf["R"]), f32(seq.t_gt[gi]),
+                      f32(seq.R_gt[gi]), align=True)
+    return dict(package=package, robot=robot, frames=frames,
+                n_keyframes=len(kf["timestamp"]),
+                odometry_rmse_trans=res.rmse_trans,
+                min_stereo_inliers=int(kf["stereo_inliers"][1:].min()),
+                min_mono_inliers=int(kf["mono_inliers"][1:].min()))
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    if sys.argv[1:2] == ["depth"]:
+        print(json.dumps(depth_window_ape(sys.argv[2], int(sys.argv[3]),
+                                          *map(int, sys.argv[4:5]))))
