@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives eight paths:
+(`check_fivept`). Then it drives ten paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -60,7 +60,11 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     `cli.replay.main`, re-verifies every attempt it logged on the card
     (accepted bit for bit, each robot's APE from the TUM files within
     1e-4 m of the run's own, every kernel of the path launched, no plain
-    version);
+    version); it also writes `--artifacts` (deformation graph, TSDF,
+    surface, marching-tetrahedra mesh): the PLY and HTML files parse and
+    hold the run's counts, vertices lie in the grid's box, a second card
+    run of `write_artifacts` gives the same bits, and the CPU's run from
+    the same poses gives the same grid within `ARTIFACT_GRID_SHARE`;
   * the `vio-sim` run of the port's CLI, `cli.run.main(["--mode",
     "vio-sim", "--robots", "6", "--steps", "30", "--vio-width", "640",
     "--vio-height", "480", "--vio-features", "300", "--vio-window", "25",
@@ -70,7 +74,8 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     step, no plain version, the kernel calls of one reject step and of
     the front-end inside main() against their plain versions, two card
     runs of a robot bit-identical, card vs CPU at the JAX e2e test's
-    size, the BoW weight span;
+    size, the BoW weight span, and the `--lc-images` evidence it wrote
+    (one PNG per loop over the threshold, read back);
   * the `euroc` run of the port's CLI, `cli.run.main(["--mode", "euroc",
     "--euroc-roots", <PNG tree>, <PGM tree>, <bag>, "--steps", "40",
     ...])` on three sessions rendered at EuRoC's camera (752 x 480, its
@@ -83,7 +88,19 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
     weight span; then the converter on the card, `io.convert.main(
     ["--euroc", <PGM tree>, ...])`, whose obs_robot0.npz must equal the
     run's products of that session bit for bit; and a frame written as
-    a PNG with libpng's adaptive row filters, decoded and timed.
+    a PNG with libpng's adaptive row filters, decoded and timed;
+  * the sequential front-end, `DistributedFrontend(6, 32, vocab,
+    FrontendConfig()).process_all` on `make_world(6, 32, 704, seed=1)`
+    (one keyframe at a time, each gated pair verified alone, C = 1).
+    Checked (`sequential_phase`): the same attempts and loops as
+    `BatchedFrontend.process_all` on that world, bit for bit (counts, R
+    and t included); no plain version; every path kernel launched as
+    often per pair as the recorded pair called it; the kernel calls of
+    one verified pair against their plain versions;
+  * the run tools: `cli.trials.main` (2 trials of the `sim` run at 2 x
+    40 x 64) and one pass of `cli.monitor.monitor` over the last trial's
+    logs (`tools_phase`: finite medians; the monitor reads each robot's
+    newest dump and appends its APE).
 
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
@@ -1659,6 +1676,142 @@ def replay_gate(dev, out, world, log_dir: str, obs_dir: str,
             "replay_ape_diff_max": max(ape_diff)}
 
 
+# ------------------------------------------------------------- artifacts
+# `--artifacts` of the first `sim` run. Card against CPU, write_artifacts
+# from the same optimized poses: the deformation's CG sums its dot
+# products in another order on each device, so the corrected positions
+# differ in their last bits, and a voxel whose pixel coordinate sits on a
+# pixel edge may read the neighbouring pixel. Limits: at least this share
+# of voxels with equal weights, equal histograms and TSDF values within
+# ARTIFACT_TSDF_TOL of each other
+ARTIFACT_GRID_SHARE = 0.999
+ARTIFACT_TSDF_TOL = 1e-4
+# every mesh vertex lies in the grid's box (an interpolation between voxel
+# centres). A surface vertex moves -tsdf / |gradient| voxels from its
+# voxel's centre, and the gradient wraps around the grid's faces (the JAX
+# package's extraction, unchanged): where it is small the vertex leaves the
+# box (9.4 % of them in this run on an H100, PERF.md). Its share inside
+# the box is held to the CPU's from the same poses instead, within
+ARTIFACT_SURFACE_SHARE_DIFF = 0.005
+
+
+def read_ply(path: str):
+    """(element counts, vertex rows (N, cols), faces (F, 4)) of an ASCII
+    PLY; fails if the rows do not match the header's counts."""
+    lines = open(path).read().splitlines()
+    if not lines or lines[0] != "ply" or "end_header" not in lines:
+        fail(f"artifacts: {path} has no PLY header")
+    end = lines.index("end_header")
+    counts = {ln.split()[1]: int(ln.split()[2]) for ln in lines[:end]
+              if ln.startswith("element ")}
+    body = lines[end + 1:]
+    n_v, n_f = counts.get("vertex", 0), counts.get("face", 0)
+    if len(body) != n_v + n_f:
+        fail(f"artifacts: {path} holds {len(body)} rows for {n_v} vertices "
+             f"and {n_f} faces")
+    verts = np.asarray([[float(x) for x in r.split()] for r in body[:n_v]],
+                       np.float64).reshape(n_v, -1)
+    faces = np.asarray([[int(x) for x in r.split()] for r in body[n_v:]],
+                       np.int64).reshape(-1, 4)
+    return counts, verts, faces
+
+
+def artifacts_gate(dev, out, world, params, tmp: str) -> dict:
+    """Gates on the `--artifacts` outputs of a `sim` run: surface.ply,
+    mesh.ply and run.html exist, the PLY headers parse and their counts
+    match the rows and the run's counts; valid surface vertices and
+    triangles > 0; every mesh vertex in the grid's box, every surface
+    vertex finite; a second card run of `write_artifacts` from the same
+    poses gives the same bits (grid, deformation states, PLY and HTML
+    bytes); the CPU's run from the same poses gives a grid within
+    ARTIFACT_GRID_SHARE / ARTIFACT_TSDF_TOL of the card's, and a share of
+    surface vertices inside the box within ARTIFACT_SURFACE_SHARE_DIFF of
+    the card's. Returns the stage entries."""
+    import argparse
+    import os
+
+    from kimera_multi_tpu_torch.cli import run
+
+    art = out["artifacts"]
+    names = ("surface.ply", "mesh.ply", "run.html")
+    if not all(os.path.exists(art["paths"][n]) for n in names):
+        fail(f"artifacts: missing files among {art['paths']}")
+    cs, vs, _ = read_ply(art["paths"]["surface.ply"])
+    cm, vm, fm = read_ply(art["paths"]["mesh.ply"])
+    if not (cs["vertex"] == art["n_vertices"] > 0
+            and cm["face"] == art["n_triangles"] > 0
+            and cm["vertex"] == 3 * cm["face"]
+            and (fm[:, 0] == 3).all() and fm[:, 1:].max() < cm["vertex"]):
+        fail(f"artifacts: PLY counts {cs} / {cm} against the run's "
+             f"{art['n_vertices']} vertices, {art['n_triangles']} triangles")
+    g = art["grid"]
+    lo = g.origin.cpu().numpy().astype(np.float64)
+    hi = lo + np.asarray(g.tsdf.shape) * g.voxel_size
+    inside = lambda v: ((v >= lo - 1e-4) & (v <= hi + 1e-4)).all(1)  # noqa
+    s_in = float(inside(vs[:, :3]).mean())
+    log(f"artifacts: {art['n_vertices']} surface vertices ({s_in:.4f} in "
+        f"the grid's box), {art['n_triangles']} triangles (all vertices in "
+        f"the box: {bool(inside(vm).all())}); constraint residual after "
+        f"the deformation (m) per robot {art['con_residual']}")
+    if not (inside(vm).all() and np.isfinite(vs).all()):
+        fail("artifacts: mesh vertices outside the grid's box, or surface "
+             "vertices not finite")
+    blobs = lambda paths: [open(paths[n], "rb").read()  # noqa: E731
+                           for n in names]
+
+    def again(d, p):
+        ns = argparse.Namespace(steps=N_FRAMES, robots=N_ROBOTS,
+                                log_dir=os.path.join(tmp, d))
+        t = time.perf_counter()
+        res = run.write_artifacts(ns, world, p)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    a2, ms2 = again("art_card", params)
+    same = (all(torch.equal(getattr(art["grid"], f), getattr(a2["grid"], f))
+                for f in ("tsdf", "weight", "sem_hist"))
+            and all(torch.equal(x.R, y.R) and torch.equal(x.t, y.t)
+                    for x, y in zip(art["states"], a2["states"]))
+            and blobs(art["paths"]) == blobs(a2["paths"]))
+    log(f"artifacts: a second card run of write_artifacts ({ms2:.0f} ms) "
+        f"bit-identical (grid, deformation states, PLY and HTML bytes): "
+        f"{same}")
+    if not same:
+        fail("artifacts: two card runs of write_artifacts differ")
+    ac, msc = again("art_cpu", type(params)(R=params.R.cpu(),
+                                            t=params.t.cpu()))
+    gc = ac["grid"]
+    w_eq = (g.weight.cpu() == gc.weight)
+    h_eq = (g.sem_hist.cpu() == gc.sem_hist).all(-1)
+    t_ok = (g.tsdf.cpu() - gc.tsdf).abs() <= ARTIFACT_TSDF_TOL
+    share = float((w_eq & h_eq & t_ok).float().mean())
+    tsdf_max = float((g.tsdf.cpu() - gc.tsdf).abs().max())
+    s_in_cpu = float(inside(read_ply(
+        ac["paths"]["surface.ply"])[1][:, :3]).mean())
+    log(f"artifacts: the CPU's write_artifacts from the same poses "
+        f"({msc:.0f} ms): voxels with equal weights "
+        f"{float(w_eq.float().mean()):.6f}, "
+        f"equal histograms {float(h_eq.float().mean()):.6f}, TSDF within "
+        f"{ARTIFACT_TSDF_TOL:g} {float(t_ok.float().mean()):.6f} (all three "
+        f"{share:.6f}, limit {ARTIFACT_GRID_SHARE}); TSDF max |card - CPU| "
+        f"{tsdf_max:g}; CPU {ac['n_vertices']} vertices ({s_in_cpu:.4f} "
+        f"in the box, limit |card - CPU| {ARTIFACT_SURFACE_SHARE_DIFF}), "
+        f"{ac['n_triangles']} triangles")
+    if share < ARTIFACT_GRID_SHARE or \
+            abs(s_in - s_in_cpu) > ARTIFACT_SURFACE_SHARE_DIFF:
+        fail("artifacts: the card's grid is off the CPU's")
+    return {"artifacts_ms": out["stages"]["artifacts_s"] * 1e3,
+            "artifacts_second_run_ms": ms2, "artifacts_cpu_ms": msc,
+            "artifacts_surface_vertices": art["n_vertices"],
+            "artifacts_triangles": art["n_triangles"],
+            "artifacts_surface_inside_box": s_in,
+            "artifacts_surface_inside_box_cpu": s_in_cpu,
+            "artifacts_observed_voxels": int((g.weight > 0).sum()),
+            "artifacts_con_residual_m": art["con_residual"],
+            "artifacts_card_cpu_voxel_share": share,
+            "artifacts_card_cpu_tsdf_max": tsdf_max}
+
+
 def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
     """(f) the port's CLI, `cli.run.main(--mode sim)`, on make_world(6,
     1024, 704, seed=0) with the defaults (40 GNC rounds, 8 GN x 40 CG
@@ -1673,7 +1826,8 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
     plain version runs; (vii) with submaps, fewer optimized poses and
     each APE below max(2 x the keyframe-level value, 0.08); (viii) the
     first run's `--save-obs` streams and logs replayed by `cli.replay`
-    (`replay_gate`). Returns the stage entries."""
+    (`replay_gate`); (ix) the first run's `--artifacts` outputs
+    (`artifacts_gate`). Returns the stage entries."""
     import os
     import shutil
     import tempfile
@@ -1695,7 +1849,7 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = run.main(SIM_ARGS + ["--log-dir", log_dir, "--save-obs",
-                                       obs_dir])
+                                       obs_dir, "--artifacts"])
             torch.cuda.synchronize()
             sim_ms = (time.perf_counter() - t) * 1e3
             launches = dict(_build.launches)
@@ -1730,6 +1884,8 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
             f"{ape_odo}")
         if not all(a < o for a, o in zip(ape, ape_odo)):
             fail("sim: a robot's APE is not below its odometry-only APE")
+        # (ix) the artifacts of the run
+        art_res = artifacts_gate(dev, out, world, be["params"], tmp)
         # (viii) the replay gate on the run's own logs and streams
         replay_res = replay_gate(dev, out, world, log_dir, obs_dir, tmp)
         # (v)
@@ -1793,6 +1949,7 @@ def sim_phase(dev, profile: bool, fe_launches: dict) -> dict:
             "save_obs_ms": st["save_obs_s"] * 1e3,
         }
         res.update(replay_res)
+        res.update(art_res)
         if profile:
             from kimera_multi_tpu_torch.solve.incidence import edge_incidence
 
@@ -1867,6 +2024,10 @@ VIO_REL_ROT_MAX = 0.05
 # gate 5: frames of one robot's pipeline, run twice; gate 4 records the
 # reject step of this keyframe
 VIO_DET_FRAMES, VIO_RECORD_KF = 20, 5
+# `--lc-images` threshold of the run (metres of ground-truth distance a
+# loop's keyframes must exceed): -1 selects every loop (robots on one arc
+# revisit the very frames of the robot before, at distance 0)
+VIO_LC_IMAGES = -1.0
 # kernel launches of one keyframe's reject step (8-point mono gate:
 # K4 at k = 8 twice, K9; Arun stereo gate: K4 at k = 3 twice, K8)
 VIO_REJECT_LAUNCHES = {"sample_gather_perm_t": 4, "rigid_counts": 1,
@@ -1996,6 +2157,27 @@ def path_wrappers() -> dict:
     }
 
 
+def call_recorder(name: str, at: dict):
+    """`patched`'s make for the kernel wrapper `name`: while at["list"] is
+    a list, each call's arguments and result (tensors cloned) are appended
+    to it as (name, args, kwargs, result)."""
+    clone = lambda x: x.clone() if torch.is_tensor(x) else x  # noqa: E731
+
+    def make(orig):
+        def wrapped(*a, **k):
+            calls = at["list"]
+            if calls is None:
+                return orig(*a, **k)
+            args = tuple(clone(x) for x in a)
+            got = orig(*a, **k)
+            calls.append((name, args, dict(k), tuple(
+                clone(g) for g in got) if isinstance(got, tuple)
+                else clone(got)))
+            return got
+        return wrapped
+    return make
+
+
 @contextlib.contextmanager
 def recorded_path(record_reject: int):
     """While open: every plain version tripwired, kernel launches counted
@@ -2011,7 +2193,6 @@ def recorded_path(record_reject: int):
 
     box = {"fe_launches": {}, "reject_calls": [], "fe_calls": []}
     at = {"list": None, "n": 0}
-    clone = lambda x: x.clone() if torch.is_tensor(x) else x
 
     def count_fe(orig):
         def wrapped(self, *a, **k):
@@ -2037,28 +2218,13 @@ def recorded_path(record_reject: int):
                 at["list"] = None
         return wrapped
 
-    def recorder(name):
-        def make(orig):
-            def wrapped(*a, **k):
-                calls = at["list"]
-                if calls is None:
-                    return orig(*a, **k)
-                args = tuple(clone(x) for x in a)
-                got = orig(*a, **k)
-                calls.append((name, args, dict(k), tuple(
-                    clone(g) for g in got) if isinstance(got, tuple)
-                    else clone(got)))
-                return got
-            return wrapped
-        return make
-
     with contextlib.ExitStack() as stack:
         stack.enter_context(patched(batched.BatchedFrontend, "process_all",
                                     count_fe))
         stack.enter_context(patched(pipeline.VioPipeline, "_reject",
                                     in_reject))
         for name, (m, attr, _) in path_wrappers().items():
-            stack.enter_context(patched(m, attr, recorder(name)))
+            stack.enter_context(patched(m, attr, call_recorder(name, at)))
         box["ran"] = stack.enter_context(plain_tripwire())
         _build.reset_launches()
         yield box
@@ -2120,6 +2286,42 @@ def vio_path_gates(box, n_rej: int, path_kernels, what: str, check) -> dict:
     return vio_launches
 
 
+def vio_lc_images_gate(out, log_dir: str) -> dict:
+    """Gate (8) of the `vio-sim` run: `--lc-images VIO_LC_IMAGES` wrote
+    one PNG per loop whose keyframes' ground-truth distance exceeds the
+    threshold, at least one, each a PNG that reads back at the pair's
+    size (two frames, a 4-pixel divider, an 11-row caption), and a
+    manifest of as many entries. Returns the stage entries."""
+    import os
+
+    from kimera_multi_tpu_torch.io.convert import load_image
+
+    t_gt = out["gt"]["t"]
+    dist = np.asarray([np.linalg.norm(t_gt[lc.robot_a, lc.frame_a]
+                                      - t_gt[lc.robot_b, lc.frame_b])
+                       for lc in out["loops"]])
+    want = int((dist > VIO_LC_IMAGES).sum())
+    paths = out["lc_images"] or []
+    shapes = {load_image(p).shape for p in paths}
+    manifest = json.load(open(os.path.join(log_dir, "lc_images",
+                                           "lc_images.json")))
+    log(f"vio-sim: --lc-images {VIO_LC_IMAGES:g}: {len(paths)} PNGs for "
+        f"{want} loops over the threshold (of {len(dist)}; "
+        f"{int((dist > 0).sum())} at a ground-truth distance > 0, the "
+        f"largest {dist.max() if len(dist) else 0.0:.3f} m), image shapes "
+        f"{shapes}, {out['stages']['lc_images_s'] * 1e3:.0f} ms")
+    want_shape = (VIO_HEIGHT + 11, 2 * VIO_WIDTH + 4)
+    if not (len(paths) == want >= 1 and len(manifest) == want
+            and shapes == {want_shape}):
+        fail(f"vio-sim: --lc-images wrote {len(paths)} pairs of shapes "
+             f"{shapes}, expected {want} of {want_shape}")
+    return {"vio_lc_images": len(paths),
+            "vio_lc_images_threshold_m": VIO_LC_IMAGES,
+            "vio_lc_images_ms": out["stages"]["lc_images_s"] * 1e3,
+            "vio_loop_gt_distance_max_m": float(dist.max()),
+            "vio_loops_at_distance_gt_0": int((dist > 0).sum())}
+
+
 def vio_phase(dev, profile: bool, check) -> dict:
     """(g) the port's CLI, `cli.run.main(--mode vio-sim)`, at 640 x 480,
     300 features, window 25, 6 robots x VIO_STEPS frames. Gates: (1) loops
@@ -2133,7 +2335,8 @@ def vio_phase(dev, profile: bool, check) -> dict:
     runs of one robot's pipeline over 20 frames at full width give the
     same bits; (6) card and CPU at the JAX e2e test's size both pass (1),
     each robot's translation APE within 0.15 m of the other's; (7) BoW
-    weight span under 2^22 in every run.
+    weight span under 2^22 in every run; (8) the run's `--lc-images`
+    evidence (`vio_lc_images_gate`).
     (1) also bounds every relative rotation of consecutive keyframes
     against the ground truth's (VIO_REL_ROT_MAX). Returns the stage
     entries."""
@@ -2153,7 +2356,8 @@ def vio_phase(dev, profile: bool, check) -> dict:
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = run.main(VIO_ARGS + ["--log-dir", log_dir])
+            out = run.main(VIO_ARGS + ["--log-dir", log_dir, "--lc-images",
+                                       str(VIO_LC_IMAGES)])
             torch.cuda.synchronize()
             vio_sim_ms = (time.perf_counter() - t) * 1e3
         launches, fe_launches = box["launches"], box["fe_launches"]
@@ -2172,6 +2376,7 @@ def vio_phase(dev, profile: bool, check) -> dict:
                               "vio-sim full width")  # 1, 7
         vio_path_gates(box, n_rej, PATH_KERNELS, "vio-sim", check)  # 2 - 4
         del box
+        lc_res = vio_lc_images_gate(out, log_dir)  # 8
 
         # ---- one robot at full width: stages, bits ---------------------
         cfg = run.vio_sim_config(VIO_WIDTH, VIO_HEIGHT, VIO_FEATURES,
@@ -2248,6 +2453,7 @@ def vio_phase(dev, profile: bool, check) -> dict:
             res[f"vio_ape_rmse_trans_{r}"] = a.rmse_trans
             res[f"vio_ape_rmse_full_{r}"] = a.rmse_full
         res["vio_rel_rot_max"] = rot.tolist()
+        res.update(lc_res)
 
         if profile:
             # one more keyframe of the second run, traced; the aten
@@ -2549,6 +2755,258 @@ def euroc_phase(dev, check) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------ sequential front-end
+# the sequential front-end (`DistributedFrontend`, `--frontend sequential`)
+# on make_world(6, SEQ_STEPS, 704, seed=1): its per-keyframe host loop
+# verifies one pair at a time (about 60 ms a pair on an H100, launch-bound,
+# PERF.md), so the depth is cut from the `sim` run's 1,024 keyframes a
+# robot to 32 for the time limit (945 pairs; 128 keyframes a robot take
+# about 300 s, PERF.md)
+SEQ_STEPS = 32
+
+
+@contextlib.contextmanager
+def recorded_pair(record: int):
+    """While open: every plain version tripwired, kernel launches counted
+    from 0, and the kernel wrappers' calls (arguments and results cloned)
+    recorded inside the `record`-th `DistributedFrontend._verify_pair`.
+    Yields a dict: `ran`, `calls` ((kernel, args, kwargs, result) each),
+    `launches` (filled when it closes)."""
+    from kimera_multi_tpu_torch.frontend import dlc
+    from kimera_multi_tpu_torch.kernels import _build
+
+    box = {"calls": []}
+    at = {"list": None, "n": 0}
+
+    def in_pair(orig):
+        def wrapped(*a, **k):
+            if at["n"] == record:
+                at["list"] = box["calls"]
+            at["n"] += 1
+            try:
+                return orig(*a, **k)
+            finally:
+                at["list"] = None
+        return wrapped
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(dlc.DistributedFrontend, "_verify_pair",
+                                    in_pair))
+        for name, (m, attr, _) in path_wrappers().items():
+            stack.enter_context(patched(m, attr, call_recorder(name, at)))
+        box["ran"] = stack.enter_context(plain_tripwire())
+        _build.reset_launches()
+        yield box
+        box["launches"] = dict(_build.launches)
+
+
+def sequential_phase(dev, check, steps: int = SEQ_STEPS) -> dict:
+    """(i) `DistributedFrontend(6, steps, vocab,
+    FrontendConfig()).process_all` on make_world(6, steps, 704, seed=1)
+    on the card, against `BatchedFrontend.process_all` on the same world.
+    Gates: (1) the same attempts and loops, in order and bit for bit:
+    keys, status, acceptance, mono and stereo counts, BoW scores, R and t
+    (the verifier sums in an order that does not follow the batch size,
+    kernels/minimal.py); (2) no plain version runs; (3) every kernel of
+    the verification path launches, each as many times per verified pair
+    as the recorded pair called it; (4) each kernel call of one verified
+    pair (the first), recorded inside the run, equals its plain version
+    on the same tensors (K6 by its contract's NaN/finite pattern,
+    `check_fivept`). Returns the stage entries."""
+    from kimera_multi_tpu_torch.frontend import batched, dlc, vocab
+    from kimera_multi_tpu_torch.frontend.dlc import FrontendConfig
+    from kimera_multi_tpu_torch.io import sim_world
+
+    world = sim_world.make_world(n_robots=N_ROBOTS, n_steps=steps,
+                                 features_per_kf=K_FEAT, seed=1)
+    corpus = world.descriptors[world.obs_valid].reshape(-1, 32)
+    voc = vocab.build_vocabulary(corpus[:: max(1, len(corpus) // 4000)],
+                                 k=8, depth=3, seed=0, device=dev)
+    data = (world.descriptors, world.bearings_local, world.landmarks_local,
+            world.obs_valid)
+    bat = batched.BatchedFrontend(N_ROBOTS, steps, voc, FrontendConfig(),
+                                  device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bat.process_all(*data)
+    torch.cuda.synchronize()
+    bat_ms = (time.perf_counter() - t) * 1e3
+    seq = dlc.DistributedFrontend(N_ROBOTS, steps, voc, FrontendConfig(),
+                                  device=dev)
+    with recorded_pair(0) as box:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = seq.process_all(*data)
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t) * 1e3
+    launches, n_att = box["launches"], len(seq.lcd_attempts)
+    row = lambda lc: (lc.robot_a, lc.frame_a, lc.robot_b, lc.frame_b,  # noqa
+                      lc.status, lc.accepted, lc.mono_inliers,
+                      lc.stereo_inliers, lc.bow_score,
+                      np.asarray(lc.R).tobytes(), np.asarray(lc.t).tobytes())
+    same_att = [row(a) for a in seq.lcd_attempts] \
+        == [row(a) for a in bat.lcd_attempts]
+    pairs = list(zip(seq.lcd_attempts, bat.lcd_attempts))
+    field_eq = {f: sum(getattr(a, f) == getattr(b, f) for a, b in pairs)
+                for f in ("robot_a", "frame_a", "robot_b", "frame_b",
+                          "status", "accepted", "mono_inliers",
+                          "stereo_inliers", "bow_score")}
+    rt_eq = sum(row(a)[-2:] == row(b)[-2:] for a, b in pairs)
+    log(f"sequential vs batched, field by field (of {len(pairs)}): "
+        f"{field_eq}; R, t bit-equal {rt_eq}")
+    per_pair = {n: sum(c[0] == n for c in box["calls"])
+                for n in PATH_KERNELS}
+    log(f"sequential: DistributedFrontend on make_world({N_ROBOTS}, "
+        f"{steps}, {K_FEAT}, seed=1) in {seq_ms:.0f} ms "
+        f"({stats['n_keyframes']} keyframes, "
+        f"{stats['n_keyframes'] / seq_ms * 1e3:.1f} keyframes/s; "
+        f"{n_att} attempts, {len(seq.loops)} loops); batched "
+        f"{bat_ms:.0f} ms ({len(bat.lcd_attempts)} attempts); attempts "
+        f"bit-equal {same_att}; launches {launches}, "
+        f"per verified pair (recorded) {per_pair}; plain versions run: "
+        f"{box['ran']}")
+    same_loops = list(map(row, seq.loops)) == list(map(row, bat.loops))
+    if not (len(bat.lcd_attempts) == n_att > 0 and same_att
+            and same_loops):  # 1
+        fail("sequential: the sequential front-end's attempts or loops "
+             "differ from the batched front-end's (limit: bit for bit)")
+    if box["ran"]:  # 2
+        fail(f"sequential: plain versions ran {box['ran']}")
+    want = {n: per_pair[n] * n_att for n in PATH_KERNELS}
+    got = {n: launches.get(n, 0) for n in PATH_KERNELS}
+    if got != want or not all(per_pair.values()):  # 3
+        fail(f"sequential: launches {got}, expected {want} ({per_pair} a "
+             f"pair x {n_att} pairs)")
+    log("sequential: the first verified pair's kernel calls "
+        f"({len(box['calls'])}), each against its plain version on the same "
+        "tensors (limit: exact equality; K6 its NaN/finite pattern, the "
+        "rest reported)")
+    plain = path_wrappers()
+    for name, a, k, res in box["calls"]:  # 4
+        where = f"sequential pair, {'x'.join(map(str, a[0].shape))}"
+        ref = plain_over_subbatches(plain[name][2], a, k)
+        if name == "fivept_models":
+            check_fivept(where, res, ref, k["gn_iters"], gated=False)
+        else:
+            check(name, res, ref, where)
+    return {"seq_world": f"make_world({N_ROBOTS}, {steps}, {K_FEAT}, "
+                         "seed=1)",
+            "seq_fe_ms": seq_ms,
+            "seq_fe_keyframes_per_s": stats["n_keyframes"] / seq_ms * 1e3,
+            "seq_fe_ms_per_pair": seq_ms / n_att,
+            "seq_batched_ms": bat_ms, "seq_attempts": n_att,
+            "seq_loops": len(seq.loops), "seq_launches": launches,
+            "seq_launches_per_pair": per_pair,
+            "seq_vs_batched_bit_equal": same_att,
+            "seq_vs_batched_rt_bit_equal": rt_eq}
+
+
+# ------------------------------------------------------------- tools
+TOOLS_TRIALS = ["--trials", "2", "--robots", "2", "--steps", "40",
+                "--features", "64"]
+
+
+def tools_phase(dev) -> dict:
+    """The run tools on the card: `cli.trials.main` (2 trials of the `sim`
+    run at 2 x 40 x 64, seeds 1000 and 1001), then one pass of
+    `cli.monitor.monitor` (max_iters=1) over the last trial's log
+    directory against ground-truth TUM files written from its world.
+    Gates: each robot's median over 2 trials, finite; the monitor reads
+    each robot's newest trajectory dump and appends one APE row, within
+    REPLAY_APE_DIFF of the trial's own (the dump holds rounded poses).
+    Returns the stage entries."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.cli import monitor, trials
+    from kimera_multi_tpu_torch.core import lie
+    from kimera_multi_tpu_torch.io import logs, sim_world
+
+    tmp = tempfile.mkdtemp(prefix="kmt_tools_")
+    try:
+        root = os.path.join(tmp, "trials")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            stats = trials.main(TOOLS_TRIALS + ["--log-root", root])
+        trials_ms = (time.perf_counter() - t) * 1e3
+        med = {r: s["median"] for r, s in stats.items()}
+        log(f"tools: trials.main({' '.join(TOOLS_TRIALS)}) in "
+            f"{trials_ms:.0f} ms: {stats}")
+        if sorted(stats) != [0, 1] or not all(
+                s["n_trials"] == 2 and np.isfinite(s["median"])
+                for s in stats.values()):
+            fail(f"tools: trial medians {stats}")
+        last = os.path.join(root, "trial_001")
+        world = sim_world.make_world(n_robots=2, n_steps=40,
+                                     features_per_kf=64, seed=1001)
+        gt, before, newest = {}, {}, {}
+        for r in range(2):
+            gt[r] = os.path.join(tmp, f"gt{r}.tum")
+            q = lie.rot_to_quat(torch.from_numpy(world.R_gt[r])).numpy()
+            logs.write_tum(gt[r], world.timestamps[r], world.t_gt[r], q)
+            before[r] = np.atleast_1d(logs.read_csv(os.path.join(
+                last, f"ape_robot{r}.csv"))["rmse_trans"])
+            newest[r] = monitor.newest_tum(os.path.join(last,
+                                                        f"robot{r}"))[-1]
+        read = []
+
+        def reading(orig):
+            def wrapped(est, ref, *a, **k):
+                read.append(est)
+                return orig(est, ref, *a, **k)
+            return wrapped
+
+        t = time.perf_counter()
+        with patched(monitor.ape_mod, "ape_from_tum", reading):
+            monitor.monitor(last, gt, interval=0.0, idle_exit=60.0,
+                            max_iters=1)
+        torch.cuda.synchronize()
+        monitor_ms = (time.perf_counter() - t) * 1e3
+        after = {r: np.atleast_1d(logs.read_csv(os.path.join(
+            last, f"ape_robot{r}.csv"))["rmse_trans"]) for r in range(2)}
+        diff = [abs(float(after[r][-1]) - float(before[r][-1]))
+                for r in range(2)]
+        log(f"tools: monitor over {last} in {monitor_ms:.0f} ms read {read} "
+            f"(newest {list(newest.values())}); APE rows before / after "
+            f"{[len(before[r]) for r in range(2)]} / "
+            f"{[len(after[r]) for r in range(2)]}; |monitor - trial| {diff} "
+            f"(limit {REPLAY_APE_DIFF})")
+        if read != [newest[0], newest[1]] or not all(
+                len(after[r]) == len(before[r]) + 1 and diff[r]
+                < REPLAY_APE_DIFF for r in range(2)):
+            fail("tools: the monitor did not read each robot's newest dump "
+                 "and append its APE")
+        return {"tools_trials_ms": trials_ms, "tools_trial_median_ape": med,
+                "tools_monitor_ms": monitor_ms,
+                "tools_monitor_ape_diff_max": max(diff)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check(name, got, ref, what):
+    """Fails unless a kernel's result equals its plain version's exactly;
+    logs and returns the largest difference."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err, bad = 0.0, 0
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            fail(f"{name} ({what}): shape/dtype {g.shape} {g.dtype} vs "
+                 f"{r.shape} {r.dtype}")
+        d = (g.to(torch.float64) - r.to(torch.float64)).abs()
+        err = max(err, float(d.max())) if d.numel() else err
+        bad += int((d != 0).sum())
+    log(f"  {name:22s} {what:34s} max_abs_err {err:g}  mismatches {bad}")
+    if bad:
+        fail(f"{name} ({what}) disagrees with its plain version: "
+             f"{bad} elements, max abs err {err} (limit: exact equality)")
+    return err
+
+
 def main() -> None:
     t_start = time.time()
     # ------------------------------------------------------------------ 1
@@ -2649,23 +3107,6 @@ def main() -> None:
     # each kernel against its plain version: main-path shapes, then ragged
     C, K, H = CHUNK, K_FEAT, N_HYP
     kernels = []
-
-    def check(name, got, ref, what):
-        got = got if isinstance(got, tuple) else (got,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        err, bad = 0.0, 0
-        for g, r in zip(got, ref):
-            if g.shape != r.shape or g.dtype != r.dtype:
-                fail(f"{name} ({what}): shape/dtype {g.shape} {g.dtype} vs "
-                     f"{r.shape} {r.dtype}")
-            d = (g.to(torch.float64) - r.to(torch.float64)).abs()
-            err = max(err, float(d.max())) if d.numel() else err
-            bad += int((d != 0).sum())
-        log(f"  {name:22s} {what:34s} max_abs_err {err:g}  mismatches {bad}")
-        if bad:
-            fail(f"{name} ({what}) disagrees with its plain version: "
-                 f"{bad} elements, max abs err {err} (limit: exact equality)")
-        return err
 
     log("kernels against their plain versions (limit: exact equality, but "
         "for the five-point kernel; the Hamming, gather and scoring kernels "
@@ -3377,10 +3818,14 @@ def main() -> None:
     stages.update(vio_phase(dev, profile, check))
     # ----------------------------------------------------------------- 11
     stages.update(euroc_phase(dev, check))
+    # ----------------------------------------------------------------- 12
+    stages.update(sequential_phase(dev, check))
+    stages.update(tools_phase(dev))
     for k in kernels:
         k["launches_vio_sim"] = stages["vio_launches"].get(k["name"], 0)
         k["launches_euroc"] = stages["euroc_launches"].get(k["name"], 0)
         k["launches_replay"] = stages["replay_launches"].get(k["name"], 0)
+        k["launches_sequential"] = stages["seq_launches"].get(k["name"], 0)
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

@@ -3,10 +3,11 @@ its `sim`, `vio-sim` and `euroc` modes with the single-device back-end).
 
     python -m kimera_multi_tpu_torch.cli.run --mode sim --robots 2 \
         --steps 30 --features 64 --seed 1 --log-dir LOGS [--device cpu] \
-        [--save-obs OBS]
+        [--save-obs OBS] [--artifacts] [--frontend sequential]
     python -m kimera_multi_tpu_torch.cli.run --mode vio-sim --robots 2 \
         --steps 16 --seed 0 --log-dir LOGS [--vio-width 640 \
-        --vio-height 480 --vio-features 300 --vio-window 25] [--device cpu]
+        --vio-height 480 --vio-features 300 --vio-window 25] [--device cpu] \
+        [--lc-images DIST_M]
     python -m kimera_multi_tpu_torch.cli.run --mode euroc \
         --euroc-roots SESSION0 SESSION1 ROBOT2.bag --steps 60 \
         --log-dir LOGS [--device cpu]
@@ -39,8 +40,12 @@ Outputs under --log-dir follow the reference contract:
   robot<r>/single/output_lcd_status.csv
   ape_robot<r>.csv
 
-The JAX package's other modes and flags are not ported yet; each exits
-non-zero with a message naming the module it needs (M10 - M14, ROADMAP
+`--artifacts` (sim) adds surface.ply, mesh.ply and run.html;
+`--frontend sequential` (sim) takes the per-keyframe front-end;
+`--lc-images DIST_M` (vio-sim) writes lc_images/*.png and a manifest.
+A flag another mode reads is accepted and ignored, with a note.
+The JAX package's distributed modes and flags are not ported yet; each
+exits non-zero with a message naming the module it needs (M11, ROADMAP
 Queue 1).
 """
 
@@ -54,12 +59,7 @@ import time
 # mode / flag -> what is missing, by module code (ROADMAP Queue 1)
 _NOT_PORTED = {
     "sim-sharded": "the sharded back-end (M11)",
-    "--lc-images": "loop-closure image evidence, eval/lc_forensics.py "
-                   "(M14)",
     "--backend sharded": "the sharded back-end (M11)",
-    "--frontend sequential": "the sequential front-end DistributedFrontend "
-                             "(M10)",
-    "--artifacts": "meshing (M13)",
     "--checkpoint": "round-state checkpoints (M11)",
     "--resume": "round-state checkpoints (M11)",
     "--profile": "the sharded rounds' profile (M11)",
@@ -89,8 +89,13 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     p.add_argument("--frontend", choices=["batched", "sequential"],
-                   default="batched")
-    p.add_argument("--artifacts", action="store_true")
+                   default="batched",
+                   help="sim: batched (detection loop, then verification "
+                        "in chunks) or sequential (one keyframe at a time, "
+                        "each gated pair verified alone; the same loops)")
+    p.add_argument("--artifacts", action="store_true",
+                   help="sim: write surface.ply, mesh.ply and run.html "
+                        "(TSDF, marching tetrahedra, deformation graph)")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--resume", default=None)
     p.add_argument("--profile", default=None, metavar="DIR")
@@ -103,7 +108,10 @@ def main(argv=None):
                         "ASL directory (containing mav0/) or a rosbag1 "
                         "file")
     p.add_argument("--lc-images", type=float, default=None,
-                   metavar="DIST_M")
+                   metavar="DIST_M",
+                   help="vio-sim: write side-by-side image evidence of the "
+                        "loop closures whose ground-truth keyframe distance "
+                        "exceeds this many metres (reference threshold 30)")
     p.add_argument("--vio-width", type=int, default=128,
                    help="vio-sim: rendered image width (reference "
                         "envelope 640)")
@@ -120,18 +128,22 @@ def main(argv=None):
 
     asked = [args.mode] if args.mode in _NOT_PORTED else []
     asked += [f"--backend {args.backend}"] * (args.backend != "single")
-    asked += [f"--frontend {args.frontend}"] * (args.frontend != "batched")
     asked += [flag for flag, on in (
-        ("--artifacts", args.artifacts), ("--checkpoint", args.checkpoint),
-        ("--resume", args.resume), ("--profile", args.profile),
-        ("--chain-refine", args.chain_refine),
-        ("--lc-images", args.lc_images is not None)) if on]
+        ("--checkpoint", args.checkpoint), ("--resume", args.resume),
+        ("--profile", args.profile), ("--chain-refine", args.chain_refine))
+        if on]
     if asked:
         raise SystemExit(f"kimera_multi_tpu_torch.cli.run: {asked[0]} is "
                          f"not ported yet: {_NOT_PORTED[asked[0]]}")
-    if args.save_obs and args.mode != "sim":
-        print("[run] --save-obs is read by --mode sim only; ignored",
-              file=sys.stderr)
+    # flags another mode reads; the JAX package ignores them silently
+    for flag, on, mode in (
+            ("--save-obs", args.save_obs, "sim"),
+            ("--artifacts", args.artifacts, "sim"),
+            ("--frontend sequential", args.frontend != "batched", "sim"),
+            ("--lc-images", args.lc_images is not None, "vio-sim")):
+        if on and args.mode != mode:
+            print(f"[run] {flag} is read by --mode {mode} only; ignored",
+                  file=sys.stderr)
     if args.mode == "vio-sim":
         return run_vio_sim(args)
     if args.mode == "euroc":
@@ -143,15 +155,16 @@ def run_sim(args):
     """The `sim` mode. Returns dict(ape, n_opt_poses, n_keyframes) as the
     JAX package's run_sim does, and besides: `stages` (seconds on a
     synchronised clock: front-end, build_pose_graph, submaps, pcm,
-    robust_pgo, logs; save_obs with `--save-obs`), `frontend` (the
-    front-end's stats), `loops` (the
-    accepted `VerifiedLC` records) and `backend`
-    (the pose graph `edges`, PCM's `consensus` and `frame_ok`, the final
-    `weights` and `params`, before any submap expansion)."""
+    robust_pgo, logs; save_obs with `--save-obs`, artifacts with
+    `--artifacts`), `frontend` (the front-end's stats), `loops` (the
+    accepted `VerifiedLC` records), `backend` (the pose graph `edges`,
+    PCM's `consensus` and `frame_ok`, the final `weights` and `params`,
+    before any submap expansion) and, with `--artifacts`, `artifacts`
+    (`write_artifacts`'s result)."""
     import torch
 
     from ..core import backend
-    from ..frontend import batched, vocab as vocab_mod
+    from ..frontend import batched, dlc, vocab as vocab_mod
     from ..frontend.dlc import FrontendConfig
     from ..io import sim_world
     from ..solve import pgo
@@ -171,12 +184,20 @@ def run_sim(args):
     voc = vocab_mod.build_vocabulary(sub, k=8, depth=3, seed=args.seed,
                                      device=dev)
     cfg = FrontendConfig(base_seed=args.seed)
-    fe = batched.BatchedFrontend(args.robots, args.steps, voc, cfg,
-                                 device=dev)
-    print("[run] front-end (batched detect + verify)...", file=sys.stderr)
     t = backend.synced_clock(dev)
-    fe_stats = fe.process_all(world.descriptors, world.bearings_local,
-                              world.landmarks_local, world.obs_valid)
+    if args.frontend == "batched":
+        fe = batched.BatchedFrontend(args.robots, args.steps, voc, cfg,
+                                     device=dev)
+        print("[run] front-end (batched detect + verify)...",
+              file=sys.stderr)
+        fe_stats = fe.process_all(world.descriptors, world.bearings_local,
+                                  world.landmarks_local, world.obs_valid)
+    else:
+        fe = dlc.DistributedFrontend(args.robots, args.steps, voc, cfg,
+                                     device=dev)
+        print("[run] front-end (sequential host loop)...", file=sys.stderr)
+        fe_stats = fe.process_all(world.descriptors, world.bearings_local,
+                                  world.landmarks_local, world.obs_valid)
     stages["frontend_s"] = backend.synced_clock(dev) - t
     print(f"[run] committed loop closures: {len(fe.loops)} (attempts "
           f"{len(fe.lcd_attempts)})", file=sys.stderr)
@@ -248,9 +269,14 @@ def run_sim(args):
     t = backend.synced_clock(dev)
     results = write_logs(args, world, fe, params, weights, dpgo_rows)
     stages["logs_s"] = backend.synced_clock(dev) - t
-    return dict(ape=results, n_opt_poses=args.robots * ppr,
-                n_keyframes=args.robots * args.steps, stages=stages,
-                frontend=fe_stats, loops=fe.loops, backend=backend_out)
+    out = dict(ape=results, n_opt_poses=args.robots * ppr,
+               n_keyframes=args.robots * args.steps, stages=stages,
+               frontend=fe_stats, loops=fe.loops, backend=backend_out)
+    if args.artifacts:
+        t = backend.synced_clock(dev)
+        out["artifacts"] = write_artifacts(args, world, params)
+        stages["artifacts_s"] = backend.synced_clock(dev) - t
+    return out
 
 
 class _VioWorld:
@@ -297,11 +323,14 @@ def run_vio_sim(args):
     Returns dict(ape, n_keyframes, n_loops, n_inter_loops, frontend_stats)
     as the JAX package's run_vio_sim does, and besides: `stages` (seconds
     on a synchronised clock: render, vio, frontend, build_pose_graph,
-    pcm, robust_pgo, logs; `vio_frame_s`, each keyframe-making frame's
-    time), `rejection_logs` (each robot's `RejectionStats` per keyframe),
-    `loops`, and `bow_weight_span` (the largest ratio of a keyframe BoW
-    vector's largest to smallest nonzero weight; detection on the card
-    equals the CPU's while it stays under 2^22, kernels/bow.py)."""
+    pcm, robust_pgo, logs, lc_images with `--lc-images`; `vio_frame_s`,
+    each keyframe-making frame's time), `rejection_logs` (each robot's
+    `RejectionStats` per keyframe), `loops`, `bow_weight_span` (the
+    largest ratio of a keyframe BoW vector's largest to smallest nonzero
+    weight; detection on the card equals the CPU's while it stays under
+    2^22, kernels/bow.py), `gt` (R, t at keyframe times and `idx`, each
+    keyframe's rendered frame) and `lc_images` (the PNGs written with
+    `--lc-images`, else None)."""
     import numpy as np
 
     from ..core import backend
@@ -421,6 +450,32 @@ def run_vio_sim(args):
         args, edges, Rn, T, t_start)
     stages["pcm_s"] = info.pop("pcm_s")
     stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+
+    # ---- loop-closure image evidence (extract_lc_images) -------------
+    lc_images = None
+    if args.lc_images is not None:
+        from ..eval import lc_forensics
+
+        t = time.perf_counter()
+        rows = []
+        for lc in fe.loops:
+            g1 = int(gt_idx[lc.robot_a, lc.frame_a])
+            g2 = int(gt_idx[lc.robot_b, lc.frame_b])
+            rows.append(dict(
+                robot1=lc.robot_a, pose1=lc.frame_a, robot2=lc.robot_b,
+                pose2=lc.frame_b,
+                gt_distance=float(np.linalg.norm(seq.t_gt[g1]
+                                                 - seq.t_gt[g2])),
+                mono_inliers=lc.mono_inliers,
+                stereo_inliers=lc.stereo_inliers))
+        lc_images = lc_forensics.extract_lc_images(
+            rows, lambda r, f: seq.left[int(gt_idx[r, f])],
+            os.path.join(args.log_dir, "lc_images"),
+            threshold=args.lc_images)
+        stages["lc_images_s"] = time.perf_counter() - t
+        print(f"[run] lc image evidence: {len(lc_images)} annotated pairs "
+              f"-> {args.log_dir}/lc_images", file=sys.stderr)
+
     t = backend.synced_clock(dev)
     results = write_logs(args, world, fe, params, weights, dpgo_rows)
     stages["logs_s"] = backend.synced_clock(dev) - t
@@ -430,7 +485,8 @@ def run_vio_sim(args):
                 bow_weight_span=span,
                 backend=dict(info, edges=edges, weights=weights,
                              params=params),
-                gt=dict(R=world.R_gt, t=world.t_gt))
+                gt=dict(R=world.R_gt, t=world.t_gt, idx=gt_idx),
+                lc_images=lc_images)
 
 
 def _bow_weight_span(fe, desc, val) -> float:
@@ -694,6 +750,100 @@ def write_logs(args, world, fe, params, weights, dpgo_rows, gt_mask=None):
         print(f"[run] robot {r}: APE trans RMSE = {res.rmse_trans:.4f} m "
               f"(full {res.rmse_full:.4f})", file=sys.stderr)
     return results
+
+
+# write_artifacts' constants (the JAX package's): the TSDF grid, the
+# virtual depth camera the landmark clouds are binned into, the
+# deformation graph's kNN, its solver and the output capacities
+ARTIFACT_GRID = dict(shape=(96, 96, 16), origin=(-12.0, -12.0, -1.0),
+                     voxel_size=0.25, trunc=0.6, n_classes=8)
+ARTIFACT_CAM = dict(H=96, W=128, fx=60.0, fy=60.0)
+ARTIFACT_KF_STRIDE = 2
+ARTIFACT_KNN = 3
+ARTIFACT_SURFACE_VERTS = 16384
+ARTIFACT_TRIANGLES = 32768
+
+
+def write_artifacts(args, world, params):
+    """Metric-semantic mesh and viewer from the optimized run (the
+    Kimera-PGMO role): each robot's odometry-frame positions are deformed
+    onto the optimized trajectory by a deformation graph (nodes: the
+    odometry poses, kNN k = 3; constraints: every max(T // 8, 1)-th node
+    at its optimized position; 4 Gauss-Newton x 30 CG steps), every 2nd
+    keyframe's landmark cloud is binned into a 96 x 128 depth and label
+    image and TSDF-integrated from its optimized rotation and corrected
+    position, then the surface (16,384 vertices), the marching-tetrahedra
+    mesh (32,768 triangles) and the viewer are written: surface.ply,
+    mesh.ply and run.html under --log-dir. Runs on `params`' device.
+
+    Returns dict(grid (TsdfGrid), states (a DeformationState per robot),
+    con_residual (each robot's largest constraint residual norm after the
+    solve, metres), n_vertices, n_triangles (valid ones written), paths)."""
+    import numpy as np
+    import torch
+
+    from ..semantics import marching, mesh_io, tsdf
+    from ..solve import deformation as dfm
+
+    dev = params.R.device
+    T = args.steps
+    grid = tsdf.make_grid(device=dev, **ARTIFACT_GRID)
+    H, W = ARTIFACT_CAM["H"], ARTIFACT_CAM["W"]
+    fx, fy = ARTIFACT_CAM["fx"], ARTIFACT_CAM["fy"]
+    cx, cy = W / 2, H / 2
+    cfg = dfm.DeformationConfig(gn_iters=4, cg_iters=30)
+    t_odo_kf = _odometry_poses(world)[1]
+    trajs, states, con_res = {}, [], []
+    for r in range(args.robots):
+        sl = slice(r * T, (r + 1) * T)
+        R_est, t_est = params.R[sl], params.t[sl]
+        trajs[r] = t_est
+        # nodes = odometry positions, constraints = optimized keyframes
+        graph = dfm.build_graph_knn(
+            torch.from_numpy(t_odo_kf[r]).to(dev), k=ARTIFACT_KNN)
+        con_node = torch.arange(0, T, max(T // 8, 1), dtype=torch.int32,
+                                device=dev)
+        con_target = t_est[con_node.long()]
+        con_valid = torch.ones(con_node.shape[0], dtype=torch.bool,
+                               device=dev)
+        state = dfm.solve(dfm.identity_state(T, device=dev), graph,
+                          con_node, con_target, con_valid, cfg)
+        states.append(state)
+        res = dfm.residuals(state, graph, con_node, con_target, con_valid,
+                            cfg)[3 * graph.edge_src.shape[0]:]
+        con_res.append(float(torch.linalg.vector_norm(
+            res.reshape(-1, 3), dim=-1).max()) / cfg.w_con)
+        t_corr = graph.node_pos + state.t
+        # each kept keyframe's landmarks, integrated from the corrected pose
+        kfs = [k for k in range(0, T, ARTIFACT_KF_STRIDE)
+               if world.obs_valid[r, k].any()]
+        lm = torch.from_numpy(np.ascontiguousarray(
+            world.landmarks_local[r, kfs], np.float32)).to(dev)
+        ok = torch.from_numpy(np.ascontiguousarray(
+            world.obs_valid[r, kfs])).to(dev)
+        places = [int(world.place_of_kf[r, k]) % 8 for k in kfs]
+        for i, k in enumerate(kfs):
+            lab = torch.full((lm.shape[1],), places[i], dtype=torch.int32,
+                             device=dev)
+            depth, lab_img = tsdf.depth_image_from_points(
+                lm[i], lab, ok[i], H, W, fx, fy, cx, cy, dilate=2)
+            grid = tsdf.integrate(grid, depth, lab_img, R_est[k], t_corr[k],
+                                  fx, fy, cx, cy)
+    verts, normals, labels, valid = tsdf.extract_surface(
+        grid, ARTIFACT_SURFACE_VERTS)
+    paths = {n: os.path.join(args.log_dir, n)
+             for n in ("surface.ply", "mesh.ply", "run.html")}
+    n_v = mesh_io.write_ply_points(paths["surface.ply"], verts, normals,
+                                   labels, valid)
+    tris, tvalid = marching.marching_tetrahedra(
+        grid, max_triangles=ARTIFACT_TRIANGLES)
+    n_t = marching.write_ply_triangles(paths["mesh.ply"], tris, tvalid)
+    mesh_io.write_html_viewer(paths["run.html"], trajs,
+                              points=verts[valid])
+    print(f"[run] artifacts: surface.ply ({n_v} vertices), mesh.ply "
+          f"({n_t} triangles), run.html in {args.log_dir}", file=sys.stderr)
+    return dict(grid=grid, states=states, con_residual=con_res,
+                n_vertices=n_v, n_triangles=n_t, paths=paths)
 
 
 def _odometry_poses(world):

@@ -243,3 +243,23 @@ def keyframes_to_numpy(keyframes) -> dict:
     same fields) -> one numpy array per field, stacked over keyframes."""
     return {f: np.stack([np.asarray(getattr(k, f)) for k in keyframes])
             for f in _KF_FIELDS}
+
+
+def tsdf_grid_from_numpy(tsdf, weight, sem_hist, origin, voxel_size, trunc,
+                         device="cuda"):
+    """A TSDF grid (the JAX package's TsdfGrid fields as numpy arrays and
+    floats) -> the port's `semantics.tsdf.TsdfGrid` on `device`."""
+    from .semantics.tsdf import TsdfGrid
+
+    return TsdfGrid(tsdf=_f32(tsdf, device), weight=_f32(weight, device),
+                    sem_hist=_f32(sem_hist, device),
+                    origin=_f32(origin, device),
+                    voxel_size=float(voxel_size), trunc=float(trunc))
+
+
+def deformation_state_from_numpy(R, t, device="cuda"):
+    """Deformation-graph node transforms R (G, 3, 3), t (G, 3) -> the
+    port's `solve.deformation.DeformationState` on `device`."""
+    from .solve.deformation import DeformationState
+
+    return DeformationState(R=_f32(R, device), t=_f32(t, device))

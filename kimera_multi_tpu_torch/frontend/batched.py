@@ -33,14 +33,10 @@ import numpy as np
 import torch
 
 from ..core import backend, lie, rng as rngmod
-from ..core.containers import (
-    LCD_FAILED_GEOM_VERIFICATION,
-    LCD_FAILED_POSE_RECOVERY,
-    LCD_LOOP_DETECTED,
-)
 from ..kernels import bow as bow_kernel, gather, hamming, ransac
 from . import lcd as lcd_mod, vocab as vocab_mod
-from .dlc import FrontendConfig, VerifiedLC, build_pose_graph_from_loops
+from .dlc import (FrontendConfig, VerifiedLC, build_pose_graph_from_loops,
+                  lcd_status)
 
 
 class DetectOutputs(NamedTuple):
@@ -137,18 +133,8 @@ def make_detector(n_robots: int, n_steps: int, cfg: FrontendConfig,
             m, s, v = lcd_mod.top_islands(norm, params, C)  # (R, R, C)
 
             # temporal constraint on the best island per (query, target)
-            m0, v0 = m[..., 0], v[..., 0]
-            if params.min_temporal_matches > 1:
-                close = (prev_island >= 0) & (
-                    torch.abs(m0 - prev_island)
-                    <= params.max_nrFrames_between_islands)
-                consec_new = torch.where(
-                    v0, torch.where(close, consec + 1, 1), 0)
-                gate = v0 & (consec_new >= params.min_temporal_matches)
-            else:
-                consec_new = torch.where(v0, consec + 1, 0)
-                gate = v0
-            prev_island_new = torch.where(v0, m0, -1)
+            gate, prev_island_new, consec_new = lcd_mod.temporal_gate(
+                m[..., 0], v[..., 0], prev_island, consec, params)
 
             out_m[k], out_s[k], out_nss[k] = m, s, nss
             out_d[k] = v & gate[..., None] & kf_ok[:, None, None]
@@ -385,12 +371,7 @@ class BatchedFrontend:
         for i in range(B):
             mono_ok = bool(res["mono_ok"][i])
             stereo_ok = bool(res["stereo_ok"][i])
-            if not mono_ok:
-                status = LCD_FAILED_GEOM_VERIFICATION
-            elif not stereo_ok:
-                status = LCD_FAILED_POSE_RECOVERY
-            else:
-                status = LCD_LOOP_DETECTED
+            status = lcd_status(mono_ok, stereo_ok)
             lc = VerifiedLC(
                 robot_a=int(rr[i]), frame_a=int(kk[i]),
                 robot_b=int(tt[i]), frame_b=int(mm[i]),

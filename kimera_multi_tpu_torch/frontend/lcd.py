@@ -126,6 +126,30 @@ def top_islands(norm_scores: torch.Tensor, params: LcdParams,
     return out_m, best_scores, valid
 
 
+def temporal_gate(match: torch.Tensor, valid: torch.Tensor,
+                  prev_island: torch.Tensor, consec: torch.Tensor,
+                  params: LcdParams):
+    """The temporal constraint across consecutive queries of a (query
+    robot, target robot) pair (checkTemporalConstraint), elementwise over
+    any shape of pairs. match, valid: each pair's best island this query
+    and whether it was detected; prev_island (-1 = none), consec: the
+    previous best island and the count of consecutive consistent
+    detections. A detection passes once min_temporal_matches of them in a
+    row had their islands within max_nrFrames_between_islands of the one
+    before. Returns (gate, prev_island, consec), the last two the new
+    state."""
+    if params.min_temporal_matches > 1:
+        close = (prev_island >= 0) & (
+            torch.abs(match - prev_island)
+            <= params.max_nrFrames_between_islands)
+        consec_new = torch.where(valid, torch.where(close, consec + 1, 1), 0)
+        gate = valid & (consec_new >= params.min_temporal_matches)
+    else:
+        consec_new = torch.where(valid, consec + 1, 0)
+        gate = valid
+    return gate, torch.where(valid, match, -1), consec_new
+
+
 def detect(db: BowDatabase, q_ids_sorted: torch.Tensor,
            q_weights: torch.Tensor, nss_factor, params: LcdParams,
            self_query_frame=None, prev_island_frame=None) -> DetectionResult:

@@ -4,7 +4,10 @@ RANSAC refits need tiny (3x3, 9x9) eigen problems per candidate. These
 closed-form versions are elementwise tensor math, batched over any leading
 axes and branchless: the same shifts, epsilons and degeneracy fallbacks as
 the JAX package's kernels/linalg.py, so both give the same eigenvector
-signs and order (which `torch.linalg.eigh` would not).
+signs and order (which `torch.linalg.eigh` would not). Products of
+3 x 3 blocks and sums over many points are written in a fixed order
+(`core/lie.py::mat3_mul`, `tree_sum`), so a candidate's result does not
+depend on how many candidates share the call.
 """
 
 from __future__ import annotations
@@ -13,11 +16,26 @@ import math
 
 import torch
 
+from ..core.lie import mat3_mul, mat3_vec
+
 _EPS = 1e-12
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, added pairwise along a fixed tree (zero
+    padded to a power of two): elementwise adds only, so the result is the
+    same bits whatever the leading shape and on every device (a library
+    reduction picks its order from the shape and the device)."""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    return torch.sqrt(tree_sum(v * v)[..., None])
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,7 +84,7 @@ def eigh3x3(A: torch.Tensor):
     v1 = _eigvec(A, e1)
     v3_raw = _eigvec(A, e3)
     # orthogonalize v3 against v1 (rescues near-degenerate cases)
-    v3 = v3_raw - torch.sum(v3_raw * v1, dim=-1, keepdim=True) * v1
+    v3 = v3_raw - tree_sum(v3_raw * v1)[..., None] * v1
     n3 = _norm(v3)
     v3_fb = _any_orthogonal(v1)
     v3 = torch.where(n3 > 1e-6, v3 / torch.clamp(n3, min=_EPS), v3_fb)
@@ -83,16 +101,16 @@ def _eigvec(A: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
     c01 = _cross(r0, r1)
     c02 = _cross(r0, r2)
     c12 = _cross(r1, r2)
-    n01 = torch.sum(c01 * c01, dim=-1, keepdim=True)
-    n02 = torch.sum(c02 * c02, dim=-1, keepdim=True)
-    n12 = torch.sum(c12 * c12, dim=-1, keepdim=True)
+    n01 = tree_sum(c01 * c01)[..., None]
+    n02 = tree_sum(c02 * c02)[..., None]
+    n12 = tree_sum(c12 * c12)[..., None]
     use01 = (n01 >= n02) & (n01 >= n12)
     use02 = (~use01) & (n02 >= n12)
     v = torch.where(use01, c01, torch.where(use02, c02, c12))
     n = _norm(v)
-    l0 = torch.sum(r0 * r0, dim=-1, keepdim=True)
-    l1 = torch.sum(r1 * r1, dim=-1, keepdim=True)
-    l2 = torch.sum(r2 * r2, dim=-1, keepdim=True)
+    l0 = tree_sum(r0 * r0)[..., None]
+    l1 = tree_sum(r1 * r1)[..., None]
+    l2 = tree_sum(r2 * r2)[..., None]
     r01 = (l0 >= l1) & (l0 >= l2)
     r02 = (~r01) & (l1 >= l2)
     big_row = torch.where(r01, r0, torch.where(r02, r1, r2))
@@ -124,18 +142,18 @@ def so3_procrustes(H: torch.Tensor):
 
     Returns (R, ok) where ok is False when rank(H) < 2 (collinear points).
     """
-    A = H.transpose(-1, -2) @ H
+    A = mat3_mul(H.transpose(-1, -2), H)
     evals, V = eigh3x3(A)
     s = torch.sqrt(torch.clamp(evals, min=0.0))  # singular values, descending
     v1, v2 = V[..., :, 0], V[..., :, 1]
-    u1 = _safe_unit(torch.einsum("...ij,...j->...i", H, v1))
-    u2_raw = torch.einsum("...ij,...j->...i", H, v2)
-    u2 = _safe_unit(u2_raw - torch.sum(u2_raw * u1, dim=-1, keepdim=True) * u1)
+    u1 = _safe_unit(mat3_vec(H, v1))
+    u2_raw = mat3_vec(H, v2)
+    u2 = _safe_unit(u2_raw - tree_sum(u2_raw * u1)[..., None] * u1)
     u3 = _cross(u1, u2)
     v3 = _cross(v1, v2)
     U = torch.stack([u1, u2, u3], dim=-1)
     Vp = torch.stack([v1, v2, v3], dim=-1)
-    R = Vp @ U.transpose(-1, -2)
+    R = mat3_mul(Vp, U.transpose(-1, -2))
     ok = s[..., 1] > 1e-7 * torch.clamp(s[..., 0], min=1.0)
     return R, ok
 
@@ -192,7 +210,7 @@ def smallest_eigvec_psd(N: torch.Tensor, iters: int = 4,
     whose smallest eigenvalue is ~0."""
     n = N.shape[-1]
     d = torch.diagonal(N, dim1=-2, dim2=-1)
-    tr = torch.sum(d, dim=-1)
+    tr = tree_sum(d)
     shift = (shift_scale * tr / n + 1e-12)[..., None, None]
     A = N + shift * torch.eye(n, dtype=N.dtype, device=N.device)
     L = cholesky_unrolled(A)

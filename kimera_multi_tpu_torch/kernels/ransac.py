@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng as rng_mod
+from ..core.lie import mat3_mul
 from . import fivept, gather, minimal, score, soa
 
 
@@ -152,9 +153,9 @@ def ransac_arun(key, p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
     R_b, t_b = _take_best(R_h, best), _take_best(t_h, best)
 
     def _inliers(R_b, t_b):
-        resid = q - (R_b @ p + t_b[:, :, None])  # (C, 3, K)
-        return (torch.sum(resid * resid, dim=1)
-                < threshold * threshold) & valid
+        r = q - (mat3_mul(R_b, p) + t_b[:, :, None])  # (C, 3, K)
+        d2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
+        return (d2 < threshold * threshold) & valid
 
     best_inl = _inliers(R_b, t_b)
     if refine:
