@@ -7,7 +7,7 @@ Builds the CUDA kernels from kimera_multi_tpu_torch/kernels/csrc with nvcc
 and holds each of the nine against its plain PyTorch version at the shapes
 of its path (and at ragged shapes): eight by exact equality, the
 five-point kernel K6 (built with FMA contraction) by its stated contract
-(`check_fivept`). Then it drives ten paths:
+(`check_fivept`). Then it drives twelve paths:
 
   * loop-closure verification, `make_verifier(FrontendConfig())` with the
     default 5-point mono gate, over keyframe stores of 6 robots x 1024
@@ -100,7 +100,25 @@ five-point kernel K6 (built with FMA contraction) by its stated contract
   * the run tools: `cli.trials.main` (2 trials of the `sim` run at 2 x
     40 x 64) and one pass of `cli.monitor.monitor` over the last trial's
     logs (`tools_phase`: finite medians; the monitor reads each robot's
-    newest dump and appends its APE).
+    newest dump and appends its APE);
+  * the sharded back-end (`sharded_phase`): `cli.run.main(["--mode",
+    "sim-sharded", ...])` on the `sim` run's world, 40 rounds over a
+    one-rank NCCL group with `--profile` and `--chain-refine`, then 20
+    rounds with `--checkpoint` and 20 with `--resume`. Checked: the
+    resumed run == the straight one bit for bit, the 40 rounds ==
+    `rbcd_round_reference` with GNC bit for bit, 2 rounds card vs CPU
+    within `round_tolerance`, APE below odometry's, the log tree and
+    dumps, `profile_summary.json`'s schema, the same kernel launches as
+    the front-end path and no plain version; the split hypothesis table
+    for 1, 2 and 4 slices == the unsplit `ransac_arun` bit for bit, K8
+    at each slice's shape == its plain version; `--backend sharded` on
+    vio-sim at 2 x 16;
+  * the pod tier (`pods_phase`): two `python -m
+    kimera_multi_tpu_torch.cli.pod` processes on the card (6 robots x
+    64 keyframes x 704 features, 30 rounds) exchanging over the native
+    TCP fabric. Checked: the hash barrier, APE below odometry's, bytes a
+    round, every front-end kernel launched in each pod; then
+    `entry.dryrun_multichip(1)`.
 
 K7, K8 and K9 are also held to their plain versions on inputs built so
 that hundreds of residuals sit on the threshold or one ulp beside it (the
@@ -113,7 +131,9 @@ CUDA events or the host clock around synchronised work.
 Every phase is fatal: a kernel that does not build, launch or agree, a
 wrong result, or no GPU ends the run with a non-zero exit code. The last
 line of the output is {"ok": true, "device": {...}}; the two lines before
-it are JSON objects {"kernels": [...]} and {"stages": {...}}.
+it are JSON objects {"kernels": [...]} and {"stages": {...}}; each
+phase's wall time is logged as it ends and kept in the stages'
+`phase_s`.
 
     python3 chip_smoke.py --profile
 
@@ -1563,9 +1583,12 @@ def sim_apes(params, world, device) -> list:
                     f(world.R_gt[r])) for r in range(world.t_gt.shape[0])]
 
 
-def check_log_tree(log_dir: str, n_robots: int, T: int, what: str) -> None:
+def check_log_tree(log_dir: str, n_robots: int, T: int, what: str,
+                   final: int | None = None) -> None:
     """Every robot's TUM file holds T finite rows and every CSV of the
-    reference schema carries the port's `io.logs` header."""
+    reference schema carries the port's `io.logs` header. With `final`,
+    a robot may hold several TUM files (the sharded back-end's dumps) and
+    kimera_distributed_poses_tum_<final>.tum is the one checked."""
     import glob
     import os
 
@@ -1579,7 +1602,8 @@ def check_log_tree(log_dir: str, n_robots: int, T: int, what: str) -> None:
     for r in range(n_robots):
         tums = glob.glob(os.path.join(
             log_dir, f"robot{r}", "distributed",
-            "kimera_distributed_poses_tum_*.tum"))
+            "kimera_distributed_poses_tum_"
+            f"{'*' if final is None else final}.tum"))
         rows = logs.read_tum(tums[0])[1] if len(tums) == 1 else None
         if rows is None or len(rows) != T or not np.isfinite(rows).all():
             fail(f"{what}: robot {r}'s TUM files {tums} do not hold {T} "
@@ -2987,6 +3011,412 @@ def tools_phase(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------ sharded back-end
+# phase (j): the sharded back-end (`--mode sim-sharded`) on phase (f)'s
+# world at full width, 40 rounds (the CLI default), a dump every 10; run B
+# stops after 20 rounds with a checkpoint and run C resumes it for 20 more
+SHARDED_ARGS = ["--mode", "sim-sharded"] + SIM_ARGS[2:] + ["--dump-every",
+                                                           "10"]
+SHARDED_ROUNDS, SHARDED_DUMP = 40, 10
+# the split hypothesis table: shards, hypotheses and candidates at the
+# front-end's stereo shape (K = 704 points a candidate)
+SPLIT_SHARDS, SPLIT_HYP, SPLIT_C = (1, 2, 4), 512, 64
+# `--backend sharded` on vio-sim at gate 6's configuration (2 x 16); the
+# cut from phase (g)'s 6 x 30 is one of time
+VIO_SHARDED_ARGS = VIO_SMALL_ARGS + ["--backend", "sharded"]
+
+
+def split_table_inputs(dev, C: int, K: int):
+    """3d-3d correspondences of C candidates at K points: uniform points,
+    a random rigid motion each, 1 cm noise, 30 % outliers, the last
+    c % 64 points of candidate c invalid; a key per candidate."""
+    from kimera_multi_tpu_torch.core import lie, rng
+
+    g = np.random.default_rng(11)
+    p = g.uniform(-4, 4, (C, 3, K)).astype(np.float32)
+    w = g.normal(0, 0.4, (C, 3)).astype(np.float32)
+    R = lie.so3_exp(torch.from_numpy(w)).numpy()
+    t = g.normal(0, 1, (C, 3)).astype(np.float32)
+    q = np.einsum("cij,cjk->cik", R, p) + t[:, :, None]
+    q += g.normal(0, 0.01, q.shape).astype(np.float32)
+    out = g.random((C, K)) < 0.3
+    q += np.where(out[:, None, :], g.uniform(2, 8, q.shape), 0).astype(
+        np.float32)
+    valid = np.arange(K)[None, :] < K - (np.arange(C) % 64)[:, None]
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    keys = rng.derive(rng.base_key(7, device=dev), rng.Stream.RANSAC_STEREO,
+                      torch.arange(C, device=dev))
+    return keys, on(p), on(q.astype(np.float32)), on(valid)
+
+
+def split_table_gate(dev, check) -> dict:
+    """The split hypothesis table (dist/sharded_verify.py) at the
+    front-end's stereo shape: for S = 1, 2 and 4 each rank's slice on the
+    card in turn, merged; the result equals the unsplit `ransac_arun`
+    (512 hypotheses) bit for bit; K8 at each slice's H = 512 / S equals
+    its plain version on the slice's models, timed against it."""
+    from kimera_multi_tpu_torch.dist import sharded_verify
+    from kimera_multi_tpu_torch.kernels import ransac, score
+
+    key, p, q, valid = split_table_inputs(dev, SPLIT_C, K_FEAT)
+    ref = ransac.ransac_arun(key, p, q, valid, n_hyp=SPLIT_HYP)
+    picks, order, inv_order = ransac._masked_sample_parts(key, valid,
+                                                          SPLIT_HYP, 3)
+    n_valid = int(valid.sum())
+    shapes = []
+    for S in SPLIT_SHARDS:
+        cands = torch.stack([sharded_verify.arun_slice(
+            key, p, q, valid, r, S, SPLIT_HYP) for r in range(S)])
+        got = sharded_verify.merge_slices(cands, p, q, valid)
+        for k in ("R", "t", "inliers", "n_inliers", "ok"):
+            if not torch.equal(got[k], ref[k]):
+                fail(f"split table, S = {S}: {k} differs from the unsplit "
+                     "ransac_arun")
+        H = SPLIT_HYP // S
+        R_h, t_h, ok_h = ransac.solve_arun_hyps(
+            p, q, picks[:, :H].contiguous(), order, inv_order)
+        args = (R_h.contiguous(), t_h.contiguous(), p, q, valid)
+        err = check("rigid_counts", score.rigid_counts(*args, 0.3),
+                    score.rigid_counts_ref(*args, 0.3),
+                    f"C={SPLIT_C} K={K_FEAT} H={H} (split table, S={S})")
+        nbytes = (SPLIT_C * H * 12 * 4 + 2 * n_valid * 3 * 4
+                  + SPLIT_C * K_FEAT + SPLIT_C * H * 4)
+        ops = H * n_valid * OPS_RIGID
+        shapes.append(dict(
+            shards=S, H=H, max_abs_err=err,
+            ms=device_ms(lambda: score.rigid_counts(*args, 0.3)),
+            plain_ms=device_ms(lambda: score.rigid_counts_ref(*args, 0.3),
+                               iters=3),
+            bound_ms=max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3,
+            bound_by="bytes" if nbytes / PEAK_BYTES > ops / PEAK_F32
+            else "operations", library_ms=None))
+        log(f"split table S = {S}: merged == unsplit ransac_arun bit for "
+            f"bit; K8 at H = {H}: {shapes[-1]['ms']:.4f} ms, plain "
+            f"{shapes[-1]['plain_ms']:.4f} ms, bound "
+            f"{shapes[-1]['bound_ms']:.4f} ms")
+    return {"split_table_shapes": shapes, "split_table_C": SPLIT_C,
+            "split_table_hyp": SPLIT_HYP}
+
+
+def sharded_round_gates(dev, out) -> dict:
+    """The rounds of run A against the reference: `rbcd_round_reference`
+    over the buckets with the GNC schedule (every 2nd round from round 8)
+    from the same start, 40 rounds, bit for bit against the one-rank NCCL
+    rounds; then 2 rounds of `make_round_fn` on the card against the
+    CPU's (a one-rank gloo group), within `round_tolerance`."""
+    import dataclasses
+
+    from kimera_multi_tpu_torch.cli import run
+    from kimera_multi_tpu_torch.core.containers import GncState
+    from kimera_multi_tpu_torch.dist import mesh, rounds
+    from kimera_multi_tpu_torch.solve import gnc, pgo, rbcd
+
+    edges, T = out["backend"]["edges"], N_FRAMES
+    p0 = pgo.init_from_odometry(edges, N_ROBOTS, T)
+    Y0, w0, _, _ = rounds.lifted_start(p0, edges, N_ROBOTS, T, 0)
+    st0 = rounds.init_state(Y0, torch.ones(N_ROBOTS, dtype=torch.bool,
+                                           device=dev),
+                            edges, T, init_weights=w0)
+    buckets = rbcd.bucket_edges(edges, N_ROBOTS, T)
+    sq = lambda Y: rbcd.lifted_edge_sq_errors(Y.reshape(-1, *Y.shape[2:]),
+                                              edges, T)
+    Y, g = Y0, st0.gnc_state
+    for i in range(SHARDED_ROUNDS):
+        Y = rbcd.rbcd_round_reference(Y, st0.active, edges, g.weights,
+                                      rbcd.RbcdConfig(), T, buckets)
+        if ((i + 1) % run.SHARDED_GNC_EVERY == 0
+                and i + 1 >= run.SHARDED_BURNIN):
+            g = gnc.gnc_update_weights(g, sq(Y), edges.etype, edges.valid)
+    same = torch.equal(Y, out["backend"]["Y"])
+    log(f"sim-sharded: {SHARDED_ROUNDS} one-rank NCCL rounds == "
+        f"rbcd_round_reference with GNC, bit for bit: {same}")
+    if not same:
+        fail("sim-sharded: the one-rank NCCL rounds differ from "
+             "rbcd_round_reference with GNC on the same schedule")
+
+    def two_rounds(device, dtype):
+        e = edges.to(device)
+        e = dataclasses.replace(e, **{f: getattr(e, f).to(dtype)
+                                      for f in ("R", "t", "kappa", "tau")})
+        gs = st0.gnc_state
+        st = rounds.RoundState(
+            Y=Y0.to(device, dtype), active=st0.active.to(device),
+            gnc_state=GncState(mu=gs.mu.to(device, dtype),
+                               weights=gs.weights.to(device, dtype),
+                               barc2=gs.barc2.to(device, dtype),
+                               outer_iter=gs.outer_iter.to(device)),
+            round_idx=0)
+        with mesh.robot_group(N_ROBOTS, device) as group:
+            fn = rounds.make_round_fn(group, e, T, rbcd.RbcdConfig(),
+                                      run.SHARDED_GNC_EVERY,
+                                      burnin_rounds=run.SHARDED_BURNIN)
+            for _ in range(2):
+                st, _ = fn(st)
+        return st.Y
+
+    tol = round_tolerance(two_rounds(dev, torch.float32).cpu(),
+                          two_rounds("cpu", torch.float32),
+                          two_rounds("cpu", torch.float64))
+    log(f"sim-sharded: 2 rounds, card (NCCL) vs CPU (gloo): max |diff| "
+        f"{tol['max']:.3e} (limit {tol['limit_max']:.3e}), mean "
+        f"{tol['mean']:.3e} (limit {tol['limit_mean']:.3e})")
+    if not tol.pop("ok"):
+        fail("sim-sharded: the card's rounds differ from the CPU's")
+    return {"sharded_rounds_equal_reference": True,
+            "sharded_card_vs_cpu_2_rounds": tol}
+
+
+def sharded_phase(dev, fe_launches: dict, check) -> dict:
+    """(j) the sharded back-end at full width: `cli.run.main(--mode
+    sim-sharded)` on phase (f)'s world, run A (40 rounds, `--profile`,
+    `--chain-refine`), run B (20 rounds, `--checkpoint`), run C
+    (`--resume` B, 20 more rounds). Gates: no plain version runs and A's
+    kernel launches equal the front-end phase's; C's final blocks equal
+    A's (before the chain refine) bit for bit; each robot's APE below its
+    odometry's; the log trees (dumps 0 - 3 and the final trajectory 5);
+    `profile_summary.json`'s schema; `sharded_round_gates`;
+    `split_table_gate`; `--backend sharded` on vio-sim at 2 x 16 (gate
+    1 of phase (g), the log tree). Returns the stage entries."""
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.cli import run
+    from kimera_multi_tpu_torch.io import sim_world
+    from kimera_multi_tpu_torch.kernels import _build
+    from kimera_multi_tpu_torch.solve import pgo
+
+    tmp = tempfile.mkdtemp(prefix="kmt_sharded_")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in "ABC"}
+        prof = os.path.join(tmp, "profile")
+        ckpt = os.path.join(tmp, "rounds.npz")
+        with plain_tripwire() as ran:
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outA = run.main(SHARDED_ARGS + ["--log-dir", dirs["A"],
+                                            "--profile", prof,
+                                            "--chain-refine"])
+            torch.cuda.synchronize()
+            a_ms = (time.perf_counter() - t) * 1e3
+            launches = dict(_build.launches)
+        be = outA["backend"]
+        log(f"sim-sharded A: main({' '.join(SHARDED_ARGS)} --profile "
+            f"--chain-refine) in {a_ms:.0f} ms; stages (s) "
+            f"{outA['stages']}; comm bytes a round {be['comm_bytes']} "
+            f"({be['comm_source']}); kernel launches {launches}; plain "
+            f"versions run: {ran}")
+        if ran:
+            fail(f"sim-sharded: main() ran plain versions {ran}")
+        if launches != fe_launches:
+            fail(f"sim-sharded: main() launched {launches}, the front-end "
+                 f"phase {fe_launches}")
+        t = time.perf_counter()
+        outB = run.main(SHARDED_ARGS + ["--log-dir", dirs["B"],
+                                        "--gnc-rounds", "20",
+                                        "--checkpoint", ckpt])
+        outC = run.main(SHARDED_ARGS + ["--log-dir", dirs["C"],
+                                        "--gnc-rounds", "20",
+                                        "--resume", ckpt])
+        bc_ms = (time.perf_counter() - t) * 1e3
+        same = (outC["backend"]["round_idx"] == SHARDED_ROUNDS
+                and torch.equal(outC["backend"]["Y"], be["Y"])
+                and torch.equal(outC["backend"]["weights"], be["weights"]))
+        log(f"sim-sharded B (20 rounds, checkpoint) + C (resumed, 20 more) "
+            f"in {bc_ms:.0f} ms: final blocks and weights == run A's, bit "
+            f"for bit: {same}")
+        if not same:
+            fail("sim-sharded: the resumed run differs from the straight "
+                 "run")
+        final = SHARDED_ROUNDS // SHARDED_DUMP + 1
+        check_log_tree(dirs["A"], N_ROBOTS, N_FRAMES, "sim-sharded", final)
+        for r in range(N_ROBOTS):
+            for k in range(SHARDED_ROUNDS // SHARDED_DUMP):
+                if not os.path.isfile(os.path.join(
+                        dirs["A"], f"robot{r}", "distributed",
+                        f"kimera_distributed_poses_tum_{k}.tum")):
+                    fail(f"sim-sharded: robot {r} has no dump {k}")
+        world = sim_world.make_world(n_robots=N_ROBOTS, n_steps=N_FRAMES,
+                                     features_per_kf=K_FEAT, seed=0)
+        R_kf, t_kf = run._odometry_poses(world)
+        ape_odo = [a.rmse_trans for a in sim_apes(pgo.PgoParams(
+            R=torch.from_numpy(R_kf.reshape(-1, 3, 3)),
+            t=torch.from_numpy(t_kf.reshape(-1, 3))), world, dev)]
+        ape = [outA["ape"][r].rmse_trans for r in range(N_ROBOTS)]
+        ape_c = [outC["ape"][r].rmse_trans for r in range(N_ROBOTS)]
+        log(f"sim-sharded: APE translation RMSE (m) per robot, A (chain "
+            f"refine) {ape}, C {ape_c}; odometry only {ape_odo}")
+        if not all(a < o for a, o in zip(ape, ape_odo)):
+            fail("sim-sharded: a robot's APE is not below its odometry's")
+        with open(os.path.join(prof, "profile_summary.json")) as f:
+            summ = json.load(f)
+        planes = {pl["name"]: pl for pl in summ["planes"]}
+        if (set(summ) != {"files", "planes"} or set(planes) != {"host",
+                                                                 "device"}
+                or any(set(pl) != {"name", "total_event_ms",
+                                   "busy_ms_by_line", "top_ops"}
+                       for pl in summ["planes"])
+                or not planes["host"]["top_ops"]):
+            fail(f"sim-sharded: profile_summary.json lacks the schema: "
+                 f"{list(summ)} {list(planes)}")
+        dev_plane = planes["device"]
+        log(f"sim-sharded: profile of {SHARDED_ROUNDS} rounds: host "
+            f"{planes['host']['total_event_ms']} ms of events, device "
+            f"{dev_plane['total_event_ms']} ms of kernels, busy "
+            f"{dev_plane['busy_ms_by_line']}; top device ops "
+            f"{dev_plane['top_ops'][:3]}")
+        res = {"sim_sharded_ms": a_ms, "sim_sharded_resume_ms": bc_ms,
+               "sim_sharded_stages_s": outA["stages"],
+               "sim_sharded_comm_bytes": be["comm_bytes"],
+               "sim_sharded_comm_source": be["comm_source"],
+               "sim_sharded_ape_rmse_trans": ape,
+               "sim_sharded_resumed_ape_rmse_trans": ape_c,
+               "sim_sharded_odometry_ape_rmse_trans": ape_odo,
+               "sim_sharded_profile_device_ms": dev_plane["total_event_ms"],
+               "sim_sharded_profile_device_busy_ms":
+                   dev_plane["busy_ms_by_line"],
+               "sharded_launches": launches}
+        res.update(sharded_round_gates(dev, outA))
+        res.update(split_table_gate(dev, check))
+        # --backend sharded on vio-sim (gate 6's configuration)
+        ld = os.path.join(tmp, "vio")
+        t = time.perf_counter()
+        o = run.main(VIO_SHARDED_ARGS + ["--log-dir", ld])
+        v_ms = (time.perf_counter() - t) * 1e3
+        vio_gate1(o, ld, 2, "vio-sim 2 x 16 --backend sharded")
+        check_log_tree(ld, 2, o["n_keyframes"] // 2,
+                       "vio-sim --backend sharded",
+                       o["backend"]["round_idx"] // SHARDED_DUMP + 1)
+        res.update(vio_sharded_ms=v_ms, vio_sharded_ape_rmse_trans=[
+            o["ape"][r].rmse_trans for r in range(2)])
+        return res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- pods
+# phase (k): two `cli.pod` processes on the one card, 3 robots each, at
+# full width (704 features), stream exchange, 30 rounds; the depth cut to
+# 64 keyframes a robot (time)
+POD_ARGS = ["--pods", "2", "--robots", str(N_ROBOTS), "--steps", "64",
+            "--features", str(K_FEAT), "--rounds", "30"]
+POD_TIMEOUT_S = 600
+
+
+def free_port_pair() -> int:
+    """A port p with p and p + 1 free on localhost."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+        try:
+            with socket.socket() as a, socket.socket() as b:
+                a.bind(("127.0.0.1", p))
+                b.bind(("127.0.0.1", p + 1))
+            return p
+        except OSError:
+            continue
+    fail("no free pair of ports on localhost")
+
+
+def pods_phase(dev) -> dict:
+    """(k) two `python -m kimera_multi_tpu_torch.cli.pod` processes on the
+    card (POD_ARGS): each senses 3 robots, the BoW vectors, VLC frames,
+    edges and direction blocks cross the native TCP fabric. Gates: both
+    exit 0; the hash barrier (the same digest on both); every robot's APE
+    below its odometry's; bytes a dpgo round logged (> 0); every kernel of
+    the front-end launched in each pod. Then `dryrun_multichip(1)` on the
+    card. Returns the stage entries."""
+    import os
+    import shutil
+    import tempfile
+
+    from kimera_multi_tpu_torch.entry import dryrun_multichip
+
+    tmp = tempfile.mkdtemp(prefix="kmt_pods_")
+    procs = []
+    try:
+        base = free_port_pair()
+        t = time.perf_counter()
+        for rank in range(2):
+            out_f = open(os.path.join(tmp, f"pod{rank}.out"), "w+")
+            err_f = open(os.path.join(tmp, f"pod{rank}.err"), "w+")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "kimera_multi_tpu_torch.cli.pod",
+                 "--rank", str(rank), *POD_ARGS, "--port-base", str(base),
+                 "--log-dir", os.path.join(tmp, "logs")],
+                stdout=out_f, stderr=err_f), out_f, err_f))
+        outs = []
+        for p, out_f, err_f in procs:
+            try:
+                rc = p.wait(timeout=POD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"pods: a pod ran past {POD_TIMEOUT_S} s")
+            out_f.seek(0)
+            err_f.seek(0)
+            err = err_f.read()
+            if rc != 0:
+                fail(f"pods: a pod exited {rc}:\n{err[-3000:]}")
+            outs.append(json.loads(out_f.read().strip().splitlines()[-1]))
+            log("\n".join(ln for ln in err.splitlines()
+                          if ln.startswith("[pod")))
+        pods_ms = (time.perf_counter() - t) * 1e3
+        for o in outs:
+            log(f"pod {o['pod']}: robots {o['robots']}, agree {o['agree']}, "
+                f"digest {o['digest']:#010x}, APE {o['ape_rmse']} (odometry "
+                f"{o['ape_odometry']}), {o['n_loops']} loops, "
+                f"{o['dpgo_bytes_per_round']:.0f} B received a dpgo round, "
+                f"rounds {o['rounds_s']:.2f} s, wall {o['wall_s']:.1f} s, "
+                f"kernel launches {o['kernel_launches']}")
+        if not (outs[0]["agree"] and outs[1]["agree"]
+                and outs[0]["digest"] == outs[1]["digest"]):
+            fail("pods: the hash barrier failed")
+        for o in outs:
+            for r, a in o["ape_rmse"].items():
+                if not a < o["ape_odometry"][r]:
+                    fail(f"pods: robot {r}'s APE {a} is not below its "
+                         f"odometry's {o['ape_odometry'][r]}")
+            if not o["dpgo_bytes_per_round"] > 0:
+                fail("pods: no bytes received in a dpgo round")
+            idle = [k for k in PATH_KERNELS if k != "hamming_top2"
+                    and o["kernel_launches"].get(k, 0) == 0]
+            if idle:
+                fail(f"pods: pod {o['pod']} never launched {idle}")
+        launches = {k: sum(o["kernel_launches"].get(k, 0) for o in outs)
+                    for k in outs[0]["kernel_launches"]}
+        t = time.perf_counter()
+        dry = dryrun_multichip(1)
+        dry_ms = (time.perf_counter() - t) * 1e3
+        if not (dry["ok"] and np.isfinite(dry["round_cost"])
+                and np.isfinite(dry["chain_t_max"])):
+            fail(f"dryrun_multichip(1): {dry}")
+        return {"pods_ms": pods_ms, "pods_args": " ".join(POD_ARGS),
+                "pods_digest": outs[0]["digest"],
+                "pods_ape_rmse_trans": {r: a for o in outs
+                                        for r, a in o["ape_rmse"].items()},
+                "pods_odometry_ape_rmse_trans": {
+                    r: a for o in outs
+                    for r, a in o["ape_odometry"].items()},
+                "pods_dpgo_bytes_per_round": [o["dpgo_bytes_per_round"]
+                                              for o in outs],
+                "pods_bow_round_bytes": [o["bow_round_bytes"] for o in outs],
+                "pods_rounds_s": [o["rounds_s"] for o in outs],
+                "pods_wall_s": [o["wall_s"] for o in outs],
+                "pods_launches": launches, "dryrun_multichip_1": dry,
+                "dryrun_multichip_1_ms": dry_ms}
+    finally:
+        for p, out_f, err_f in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out_f.close()
+            err_f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check(name, got, ref, what):
     """Fails unless a kernel's result equals its plain version's exactly;
     logs and returns the largest difference."""
@@ -3804,28 +4234,57 @@ def main() -> None:
         print(json.dumps({"profile": profile_chunk(full, stages["full_ms"])}),
               flush=True)
 
+    # each phase's wall time from here on (s); the build, the kernels'
+    # checks and the verification phase before it as one entry
+    phase_s = {"build_kernels_verification": time.time() - t_start}
+
+    def run_phase(name, fn):
+        t = time.time()
+        r = fn()
+        phase_s[name] = time.time() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return r
+
+    log(f"phase build_kernels_verification: "
+        f"{phase_s['build_kernels_verification']:.1f} s")
     # ------------------------------------------------------------------ 6
-    kernels.insert(1, db_top2_phase(desc_store, check))
+    kernels.insert(1, run_phase("db_top2", lambda: db_top2_phase(
+        desc_store, check)))
     kernels[1]["launches_per_chunk"] = launches5["hamming_top2"] // n_chunks
     # ------------------------------------------------------------------ 7
-    stages.update(frontend_phase(dev, profile))
+    stages.update(run_phase("frontend", lambda: frontend_phase(dev,
+                                                               profile)))
     # ------------------------------------------------------------------ 8
-    stages.update(backend_phase(dev, profile))
-    stages.update(entry_phase(dev, profile, check))
+    stages.update(run_phase("backend", lambda: backend_phase(dev, profile)))
+    stages.update(run_phase("entry", lambda: entry_phase(dev, profile,
+                                                         check)))
     # ------------------------------------------------------------------ 9
-    stages.update(sim_phase(dev, profile, stages["fe_launches"]))
+    stages.update(run_phase("sim", lambda: sim_phase(
+        dev, profile, stages["fe_launches"])))
     # ----------------------------------------------------------------- 10
-    stages.update(vio_phase(dev, profile, check))
+    stages.update(run_phase("vio_sim", lambda: vio_phase(dev, profile,
+                                                         check)))
     # ----------------------------------------------------------------- 11
-    stages.update(euroc_phase(dev, check))
+    stages.update(run_phase("euroc", lambda: euroc_phase(dev, check)))
     # ----------------------------------------------------------------- 12
-    stages.update(sequential_phase(dev, check))
-    stages.update(tools_phase(dev))
+    stages.update(run_phase("sequential", lambda: sequential_phase(
+        dev, check)))
+    stages.update(run_phase("tools", lambda: tools_phase(dev)))
+    # ----------------------------------------------------------------- 13
+    stages.update(run_phase("sharded", lambda: sharded_phase(
+        dev, stages["fe_launches"], check)))
+    # ----------------------------------------------------------------- 14
+    stages.update(run_phase("pods", lambda: pods_phase(dev)))
+    stages["phase_s"] = phase_s
     for k in kernels:
         k["launches_vio_sim"] = stages["vio_launches"].get(k["name"], 0)
         k["launches_euroc"] = stages["euroc_launches"].get(k["name"], 0)
         k["launches_replay"] = stages["replay_launches"].get(k["name"], 0)
         k["launches_sequential"] = stages["seq_launches"].get(k["name"], 0)
+        k["launches_sharded"] = stages["sharded_launches"].get(k["name"], 0)
+        k["launches_pods"] = stages["pods_launches"].get(k["name"], 0)
+        if k["name"] == "rigid_counts":
+            k["split_table_shapes"] = stages["split_table_shapes"]
     # each launch of a chunk at its own shape: the measured launches per
     # chunk, of which those named at another shape are timed there
     stages["kernels_ms_per_chunk"] = sum(

@@ -1,5 +1,6 @@
 """End-to-end run entry point of the port (the JAX package's cli/run.py:
-its `sim`, `vio-sim` and `euroc` modes with the single-device back-end).
+its `sim`, `sim-sharded`, `vio-sim` and `euroc` modes, with the
+single-device or the sharded back-end).
 
     python -m kimera_multi_tpu_torch.cli.run --mode sim --robots 2 \
         --steps 30 --features 64 --seed 1 --log-dir LOGS [--device cpu] \
@@ -11,6 +12,13 @@ its `sim`, `vio-sim` and `euroc` modes with the single-device back-end).
     python -m kimera_multi_tpu_torch.cli.run --mode euroc \
         --euroc-roots SESSION0 SESSION1 ROBOT2.bag --steps 60 \
         --log-dir LOGS [--device cpu]
+    python -m kimera_multi_tpu_torch.cli.run --mode sim-sharded \
+        --robots 2 --steps 30 --features 64 --log-dir LOGS [--device cpu] \
+        [--dump-every 10] [--checkpoint CKPT.npz] [--resume CKPT.npz] \
+        [--profile DIR] [--chain-refine]
+    torchrun --standalone --nproc-per-node N \
+        -m kimera_multi_tpu_torch.cli.run --mode sim-sharded --robots 6 \
+        ... [--device cpu]   (N ranks, N dividing the fleet)
 
 sim: synthetic sensor world -> vocabulary -> batched front-end (BoW
 detection, RANSAC verification) -> pose graph (optionally coarsened to
@@ -28,6 +36,20 @@ session's first `--steps` frames (io/convert.py) -> the batched front-end
 against each session's ground truth (suppressed for a session without).
 `--save-obs DIR` (sim) writes each robot's observation stream for the
 replay gate (cli/replay.py).
+sim-sharded (or `--backend sharded` in vio-sim and euroc): the back-end as
+bulk-synchronous RBCD rounds over a robot group (dist/): PCM consensus,
+lifting, `--gnc-rounds` rounds with GNC reweighting every 2nd round from
+round 8, a trajectory dump every `--dump-every` rounds (numbered by the
+global round, so a resumed run continues the numbering), rounding, the
+gauge and a Gauss-Newton polish. The group is the default process group
+when one is initialised, else one made from the environment under a
+launcher such as torchrun (rank k on cuda:LOCAL_RANK, or gloo ranks with
+`--device cpu`; rank k > 0 writes its logs under LOGS/rank<k>), else one
+rank in this process (NCCL on the card, gloo on the CPU). `--checkpoint PATH` saves the round state
+at every dump and `--resume PATH` continues from one (the JAX package's
+file format); `--profile DIR` traces the rounds with torch.profiler
+(DIR/trace.json, DIR/profile_summary.json); `--chain-refine` re-solves
+every translation with the chain-sharded solver after the polish.
 Every mode runs on the card unless `--device cpu` is given; asking for the
 card where there is none raises.
 
@@ -43,10 +65,8 @@ Outputs under --log-dir follow the reference contract:
 `--artifacts` (sim) adds surface.ply, mesh.ply and run.html;
 `--frontend sequential` (sim) takes the per-keyframe front-end;
 `--lc-images DIST_M` (vio-sim) writes lc_images/*.png and a manifest.
-A flag another mode reads is accepted and ignored, with a note.
-The JAX package's distributed modes and flags are not ported yet; each
-exits non-zero with a message naming the module it needs (M11, ROADMAP
-Queue 1).
+A flag another mode or back-end reads is accepted and ignored, with a
+note.
 """
 
 from __future__ import annotations
@@ -56,15 +76,16 @@ import os
 import sys
 import time
 
-# mode / flag -> what is missing, by module code (ROADMAP Queue 1)
-_NOT_PORTED = {
-    "sim-sharded": "the sharded back-end (M11)",
-    "--backend sharded": "the sharded back-end (M11)",
-    "--checkpoint": "round-state checkpoints (M11)",
-    "--resume": "round-state checkpoints (M11)",
-    "--profile": "the sharded rounds' profile (M11)",
-    "--chain-refine": "the chain solver (M11)",
-}
+
+def _sharded(args) -> bool:
+    """Whether the run takes the sharded back-end, as in the JAX package:
+    `--mode sim-sharded`, or `--backend sharded` in the vio-sim and euroc
+    modes (`args` may be any namespace: a missing mode or back-end is the
+    single-device sim)."""
+    mode = getattr(args, "mode", "sim")
+    if mode in ("sim", "sim-sharded"):
+        return mode == "sim-sharded"
+    return getattr(args, "backend", "single") == "sharded"
 
 
 def main(argv=None):
@@ -80,9 +101,10 @@ def main(argv=None):
     p.add_argument("--log-dir", default="kimera_multi_tpu_torch_logs")
     p.add_argument("--gnc-rounds", type=int, default=40)
     p.add_argument("--dump-every", type=int, default=10,
-                   help="names the final trajectory dump "
-                        "kimera_distributed_poses_tum_<gnc_rounds // "
-                        "dump_every + 1>.tum")
+                   help="sharded back-end: a trajectory dump (and the "
+                        "checkpoint) every this many rounds; the final "
+                        "trajectory is kimera_distributed_poses_tum_<rounds "
+                        "// dump_every + 1>.tum")
     p.add_argument("--submap-size", type=int, default=0,
                    help="coarsen the back-end graph to submaps of up to "
                         "this many keyframes (0 = keyframe level)")
@@ -96,10 +118,20 @@ def main(argv=None):
     p.add_argument("--artifacts", action="store_true",
                    help="sim: write surface.ply, mesh.ply and run.html "
                         "(TSDF, marching tetrahedra, deformation graph)")
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--resume", default=None)
-    p.add_argument("--profile", default=None, metavar="DIR")
-    p.add_argument("--chain-refine", action="store_true")
+    p.add_argument("--checkpoint", default=None,
+                   help="sharded back-end: save the round state here at "
+                        "every dump")
+    p.add_argument("--resume", default=None,
+                   help="sharded back-end: continue from a round-state "
+                        "checkpoint")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="sharded back-end: trace the rounds with "
+                        "torch.profiler into DIR (trace.json, "
+                        "profile_summary.json)")
+    p.add_argument("--chain-refine", action="store_true",
+                   help="sharded back-end: after rounding and the polish, "
+                        "re-solve every translation with the chain-sharded "
+                        "solver")
     p.add_argument("--save-obs", default=None,
                    help="sim: write each robot's observation stream "
                         "(obs_robot<k>.npz) here for cli/replay.py")
@@ -126,15 +158,6 @@ def main(argv=None):
                         "envelope 25 keyframes)")
     args = p.parse_args(argv)
 
-    asked = [args.mode] if args.mode in _NOT_PORTED else []
-    asked += [f"--backend {args.backend}"] * (args.backend != "single")
-    asked += [flag for flag, on in (
-        ("--checkpoint", args.checkpoint), ("--resume", args.resume),
-        ("--profile", args.profile), ("--chain-refine", args.chain_refine))
-        if on]
-    if asked:
-        raise SystemExit(f"kimera_multi_tpu_torch.cli.run: {asked[0]} is "
-                         f"not ported yet: {_NOT_PORTED[asked[0]]}")
     # flags another mode reads; the JAX package ignores them silently
     for flag, on, mode in (
             ("--save-obs", args.save_obs, "sim"),
@@ -144,6 +167,22 @@ def main(argv=None):
         if on and args.mode != mode:
             print(f"[run] {flag} is read by --mode {mode} only; ignored",
                   file=sys.stderr)
+    if args.mode == "sim" and args.backend == "sharded":
+        print("[run] --backend is read by --mode vio-sim and euroc only "
+              "(--mode sim-sharded takes the sharded back-end); ignored",
+              file=sys.stderr)
+    if "LOCAL_RANK" in os.environ and args.device == "cuda":
+        # one rank a card under a launcher such as torchrun
+        args.device = f"cuda:{os.environ['LOCAL_RANK']}"
+    if not _sharded(args):
+        for flag, on in (("--checkpoint", args.checkpoint),
+                         ("--resume", args.resume),
+                         ("--profile", args.profile),
+                         ("--chain-refine", args.chain_refine)):
+            if on:
+                print(f"[run] {flag} is read by the sharded back-end only "
+                      "(--mode sim-sharded or --backend sharded); ignored",
+                      file=sys.stderr)
     if args.mode == "vio-sim":
         return run_vio_sim(args)
     if args.mode == "euroc":
@@ -257,9 +296,8 @@ def run_sim(args):
 
     print("[run] back-end optimization...", file=sys.stderr)
     params, weights, dpgo_rows, info = _optimize_backend(
-        args, edges, args.robots, ppr, t_start)
-    stages["pcm_s"] = info.pop("pcm_s")
-    stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+        args, edges, args.robots, ppr, t_start, world, expand_fn)
+    _move_times(info, stages)
     backend_out = dict(info, edges=edges, weights=weights, params=params)
     # expand submap anchors back to keyframes before logging
     # (processOptimizedPath)
@@ -267,7 +305,8 @@ def run_sim(args):
         params = expand_fn(params)
 
     t = backend.synced_clock(dev)
-    results = write_logs(args, world, fe, params, weights, dpgo_rows)
+    results = write_logs(args, world, fe, params, weights, dpgo_rows,
+                         final_idx=info.get("final_idx"))
     stages["logs_s"] = backend.synced_clock(dev) - t
     out = dict(ape=results, n_opt_poses=args.robots * ppr,
                n_keyframes=args.robots * args.steps, stages=stages,
@@ -444,12 +483,12 @@ def run_vio_sim(args):
                      F_total - 1)
     world = _VioWorld(timestamps=ts_kf, t_gt=seq.t_gt[gt_idx],
                       R_gt=seq.R_gt[gt_idx], R_odo=R_odo, t_odo=t_odo)
-    args.steps = T  # write_logs slices by T
-    print("[run] back-end optimization (single device)...", file=sys.stderr)
+    args.steps = T  # write_logs and the round dumps slice by T
+    print(f"[run] back-end optimization ({_backend_name(args)})...",
+          file=sys.stderr)
     params, weights, dpgo_rows, info = _optimize_backend(
-        args, edges, Rn, T, t_start)
-    stages["pcm_s"] = info.pop("pcm_s")
-    stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+        args, edges, Rn, T, t_start, world)
+    _move_times(info, stages)
 
     # ---- loop-closure image evidence (extract_lc_images) -------------
     lc_images = None
@@ -477,7 +516,8 @@ def run_vio_sim(args):
               f"-> {args.log_dir}/lc_images", file=sys.stderr)
 
     t = backend.synced_clock(dev)
-    results = write_logs(args, world, fe, params, weights, dpgo_rows)
+    results = write_logs(args, world, fe, params, weights, dpgo_rows,
+                         final_idx=info.get("final_idx"))
     stages["logs_s"] = backend.synced_clock(dev) - t
     return dict(ape=results, n_keyframes=Rn * T, n_loops=len(fe.loops),
                 n_inter_loops=n_inter, frontend_stats=stats, stages=stages,
@@ -614,16 +654,15 @@ def run_euroc(args):
 
     world = _VioWorld(timestamps=ts_kf, t_gt=t_gt, R_gt=R_gt, R_odo=R_odo,
                       t_odo=t_odo)
-    args.steps = T  # write_logs slices by T
+    args.steps = T  # write_logs and the round dumps slice by T
     args.robots = Rn
-    say("back-end optimization (single device)...")
+    say(f"back-end optimization ({_backend_name(args)})...")
     params, weights, dpgo_rows, info = _optimize_backend(
-        args, edges, Rn, T, t_start)
-    stages["pcm_s"] = info.pop("pcm_s")
-    stages["robust_pgo_s"] = info.pop("robust_pgo_s")
+        args, edges, Rn, T, t_start, world)
+    _move_times(info, stages)
     t = backend.synced_clock(dev)
     results = write_logs(args, world, fe, params, weights, dpgo_rows,
-                         gt_mask=gt_mask)
+                         gt_mask=gt_mask, final_idx=info.get("final_idx"))
     stages["logs_s"] = backend.synced_clock(dev) - t
     return dict(ape=results, n_keyframes=Rn * T, n_loops=len(fe.loops),
                 n_inter_loops=n_inter, frontend_stats=fe_stats,
@@ -635,14 +674,32 @@ def run_euroc(args):
                 observations=[s[0] for s in streams])
 
 
-def _optimize_backend(args, edges, n_robots, ppr, t_start):
-    """The single-device robust PGO back-end over `edges` (the JAX
-    package's `_optimize_backend(sharded=False)`): odometry
-    initialization, then `robust_pgo`. Returns (params, weights,
-    dpgo_rows, info) with `info` from `robust_pgo`."""
+def _backend_name(args) -> str:
+    return ("sharded robot-group rounds" if _sharded(args)
+            else "single device")
+
+
+def _move_times(info: dict, stages: dict) -> None:
+    """Move the back-end's times (the `*_s` entries of its info) into the
+    run's stages."""
+    for k in [k for k in info if k.endswith("_s")]:
+        stages[k] = info.pop(k)
+
+
+def _optimize_backend(args, edges, n_robots, ppr, t_start, world=None,
+                      expand_fn=None):
+    """The back-end over `edges` (the JAX package's `_optimize_backend`):
+    odometry initialization, then `robust_pgo` on one device, or with
+    `_sharded(args)` the rounds of `_optimize_sharded`. Returns (params,
+    weights, dpgo_rows, info); info holds PCM's `consensus` and
+    `frame_ok` and the back-end's times (`pcm_s` and `robust_pgo_s`, or
+    those of `_optimize_sharded`)."""
     from ..solve import pgo, robust
 
     params0 = pgo.init_from_odometry(edges, n_robots, ppr)
+    if _sharded(args):
+        return _optimize_sharded(args, edges, n_robots, ppr, params0,
+                                 t_start, world, expand_fn)
     info = {}
     params, gstate = robust.robust_pgo(
         params0, edges, ppr, gnc_outer_iters=args.gnc_rounds, info=info)
@@ -655,10 +712,236 @@ def _optimize_backend(args, edges, n_robots, ppr, t_start):
     return params, gstate.weights, dpgo_rows, info
 
 
-def write_logs(args, world, fe, params, weights, dpgo_rows, gt_mask=None):
+# the sharded back-end's schedule (the JAX package's cli/run.py): GNC
+# reweighting every 2nd round from round 8, RbcdConfig()'s rounds, the
+# polish's Gauss-Newton iterations and CG steps, the chain solve's CG steps
+SHARDED_GNC_EVERY, SHARDED_BURNIN = 2, 8
+POLISH_GN_ITERS, POLISH_CG_ITERS = 5, 40
+CHAIN_CG_ITERS = 150
+
+
+def _optimize_sharded(args, edges, n_robots, ppr, params0, t_start, world,
+                      expand_fn):
+    """The sharded back-end (the JAX package's `_optimize_backend(...,
+    sharded=True)`): PCM consensus decides the inter-robot frames,
+    non-consensus shared loops start at weight 0; lifting; rounds over the
+    robot group with a dump every `--dump-every` rounds (and the
+    checkpoint); rounding, the gauge (pose 0 at the identity) and a
+    Gauss-Newton polish; with `--chain-refine` the chain solve of every
+    translation.
+
+    info: `consensus`, `frame_ok` (`rounds.lifted_start`), `Y` (the
+    rounds' final blocks), `round_idx`, `comm_bytes` per round and where
+    it comes from (`comm_source`: "measured" by the group's collectives
+    or "analytic"), `final_idx` (the final trajectory file's index),
+    `rank` and `world`, `profile` (the summary, with `--profile`), and
+    the times `pcm_s` (PCM and lifting), `rounds_s`, `polish_s`
+    (rounding, gauge, Gauss-Newton), `chain_refine_s`."""
+    import contextlib
+
+    import torch
+
+    from ..core import backend, lie, stiefel
+    from ..dist import checkpoint, mesh, rounds
+    from ..solve import pgo, rbcd
+
+    dev = params0.R.device
+    info = {}
+    t = backend.synced_clock(dev)
+    Y0, w0, consensus, frame_ok = rounds.lifted_start(
+        params0, edges, n_robots, ppr, args.seed)
+    info.update(consensus=consensus, frame_ok=frame_ok,
+                pcm_s=backend.synced_clock(dev) - t)
+    rcfg = rbcd.RbcdConfig()
+    say = lambda m: print(f"[run] {m}", file=sys.stderr)  # noqa: E731
+    with mesh.robot_group(n_robots, dev) as group:
+        info.update(rank=group.rank, world=group.world)
+        say(f"robot group: rank {group.rank} of {group.world}, robots "
+            f"{group.owned[0]}-{group.owned[-1]} on {group.device}")
+        if group.rank:
+            # every rank holds the same solution; rank 0 writes the log
+            # tree, the others beside it
+            args.log_dir = os.path.join(args.log_dir, f"rank{group.rank}")
+        round_fn = rounds.make_round_fn(
+            group, edges, ppr, rcfg, weight_update_every=SHARDED_GNC_EVERY,
+            burnin_rounds=SHARDED_BURNIN)
+        if args.resume:
+            state = checkpoint.load(args.resume, device=dev)
+            say(f"resumed from {args.resume} at round {state.round_idx}")
+        else:
+            state = rounds.init_state(
+                Y0, torch.ones(n_robots, dtype=torch.bool, device=dev),
+                edges, ppr, init_weights=w0)
+        dpgo_rows = []
+        comm_bytes = None
+        if args.profile:
+            from ..eval import profile as profile_mod
+
+            prof = profile_mod.trace(dev)
+            say(f"profiling rounds -> {args.profile}")
+        t = backend.synced_clock(dev)
+        with prof if args.profile else contextlib.nullcontext():
+            for i in range(args.gnc_rounds):
+                t0 = time.time()
+                received = group.received
+                state, cost = round_fn(state)
+                if comm_bytes is None:
+                    comm_bytes = _round_comm_bytes(
+                        group.received - received, state, group, rcfg, info)
+                dpgo_rows.append(dict(
+                    robot_id=0, instance=0, iteration=state.round_idx - 1,
+                    num_poses=n_robots * ppr,
+                    bytes_received=comm_bytes * (i + 1),
+                    iteration_time_sec=time.time() - t0,
+                    total_time_sec=time.time() - t_start, rel_change=0.0,
+                    func_decrease=float(cost), grad_norm=0.0,
+                    num_active_robots=n_robots))
+                if state.round_idx % args.dump_every == 0:
+                    # periodic trajectory dumps (logTimerCallback),
+                    # numbered by the global round
+                    _dump_round_trajectories(
+                        args, world, state.Y,
+                        state.round_idx // args.dump_every - 1, expand_fn)
+                    if args.checkpoint and group.rank == 0:
+                        checkpoint.save(args.checkpoint, state)
+        info["rounds_s"] = backend.synced_clock(dev) - t
+        info["comm_bytes"] = comm_bytes
+        if args.profile:
+            info["profile"] = summary = profile_mod.write(prof, args.profile)
+            for plane in summary["planes"]:
+                top3 = ", ".join(f"{o['name']} {o['total_ms']}ms"
+                                 for o in plane["top_ops"][:3])
+                say(f"profile {plane['name']}: {plane['total_event_ms']}ms "
+                    f"events; top: {top3}")
+        info.update(Y=state.Y, round_idx=state.round_idx,
+                    final_idx=state.round_idx // max(args.dump_every, 1) + 1)
+        t = backend.synced_clock(dev)
+        weights = state.gnc_state.weights
+        R_all, t_all = stiefel.round_solution(
+            state.Y.reshape(-1, *state.Y.shape[2:]), 3)
+        # gauge (pose 0 at the identity, as the Gauss-Newton anchor), then
+        # an SE(3) polish of the rounded solution
+        Rg, tg = lie.se3_inverse(R_all[0], t_all[0])
+        n_all = R_all.shape[0]
+        R_all, t_all = lie.se3_compose(Rg.expand(n_all, 3, 3),
+                                       tg.expand(n_all, 3), R_all, t_all)
+        params = pgo.gauss_newton(pgo.PgoParams(R=R_all, t=t_all), edges,
+                                  weights, ppr, gn_iters=POLISH_GN_ITERS,
+                                  cg_iters=POLISH_CG_ITERS)
+        info["polish_s"] = backend.synced_clock(dev) - t
+        if args.chain_refine:
+            t = backend.synced_clock(dev)
+            params = pgo.PgoParams(R=params.R, t=_chain_refine(
+                params, edges, ppr, weights, group))
+            info["chain_refine_s"] = backend.synced_clock(dev) - t
+            say("chain-refine: translations re-solved by the chain-sharded "
+                f"solver over {group.world} rank(s)")
+    return params, weights, dpgo_rows, info
+
+
+def _round_comm_bytes(received, state, group, rcfg, info) -> int:
+    """Bytes received a round: `received`, the group's count over the
+    first round (reference counter: mTotalBytesReceived), or the
+    analytic model where that count fails its sanity band (always on one
+    rank), with the reason logged. Sets info["comm_source"]."""
+    from ..dist import rounds
+
+    try:
+        n = rounds.measured_round_comm_bytes(received, state.Y.shape,
+                                             group.world, rcfg.inner_iters)
+        info["comm_source"] = "measured"
+        return n
+    except ValueError as e:
+        print(f"[run] comm-byte count not usable ({e}); using the "
+              "analytic model", file=sys.stderr)
+        info["comm_source"] = "analytic"
+        return rounds.round_comm_bytes(tuple(state.Y.shape),
+                                       rcfg.inner_iters)
+
+
+def _chain_refine(params, edges, ppr, weights, group,
+                  cg_iters=CHAIN_CG_ITERS):
+    """Exact translation recovery as one sequence-parallel solve (the JAX
+    package's `_chain_refine`): given the final rotations the translation
+    subproblem is linear; the fleet's pose chains are concatenated into
+    one chain split over the group's ranks, with zero-weight links at the
+    robot boundaries and every GNC-weighted loop closure in the coupling
+    table. Warm-started at the polished translations, so a robot cut off
+    from the anchor keeps its placement. Returns t (N, 3)."""
+    import numpy as np
+    import torch
+
+    from ..core.containers import EDGE_ODOMETRY
+    from ..dist import chain
+
+    W = group.world
+    N = params.t.shape[0]
+    Np = int(np.ceil(N / W) * W)
+    src, dst = (x.cpu().numpy() for x in edges.global_ids(ppr))
+    et = edges.etype.cpu().numpy()
+    val = edges.valid.cpu().numpy()
+    w_all = (weights * edges.tau).cpu().numpy()
+    R_f = params.R.cpu().numpy()
+    t_meas = edges.t.cpu().numpy()
+
+    d_chain = np.zeros((Np, 3), np.float32)
+    wc = np.zeros(Np, np.float32)
+    is_odo = val & (et == EDGE_ODOMETRY) & (dst == src + 1)
+    oe = np.nonzero(is_odo)[0]
+    d_chain[src[oe]] = np.einsum("eij,ej->ei", R_f[src[oe]], t_meas[oe])
+    wc[src[oe]] = w_all[oe]
+
+    lc = np.nonzero(val & ~is_odo & (w_all > 1e-9))[0]
+    cap = max(8, int(2 ** np.ceil(np.log2(max(len(lc), 1)))))
+    lc_src = np.full(cap, -1, np.int32)
+    lc_dst = np.full(cap, -1, np.int32)
+    lc_d = np.zeros((cap, 3), np.float32)
+    lc_w = np.zeros(cap, np.float32)
+    lc_src[: len(lc)] = src[lc]
+    lc_dst[: len(lc)] = dst[lc]
+    lc_d[: len(lc)] = np.einsum("eij,ej->ei", R_f[src[lc]], t_meas[lc])
+    lc_w[: len(lc)] = w_all[lc]
+
+    x0 = np.zeros((Np, 3), np.float32)
+    x0[:N] = params.t.cpu().numpy()
+    dev = params.t.device
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    solve = chain.make_chain_translation_solver(group, Np, cap,
+                                                cg_iters=cg_iters)
+    t = solve(on(d_chain), on(lc_src), on(lc_dst), on(lc_d), on(lc_w),
+              w_chain=on(wc), x0=on(x0))
+    return t[:N]
+
+
+def _dump_round_trajectories(args, world, Y, dump_idx, expand_fn=None):
+    """Mid-optimization trajectory dump per robot
+    (kimera_distributed_poses_tum_<k>.tum) of the rounded blocks Y."""
+    from ..core import lie, stiefel
+    from ..io import logs
+    from ..solve.pgo import PgoParams
+
+    R_all, t_all = stiefel.round_solution(Y.reshape(-1, *Y.shape[2:]), 3)
+    if expand_fn is not None:
+        p = expand_fn(PgoParams(R=R_all, t=t_all))
+        R_all, t_all = p.R, p.t
+    q_all = lie.rot_to_quat(R_all).cpu().numpy()
+    t_all = t_all.cpu().numpy()
+    T = args.steps
+    for r in range(args.robots):
+        sl = slice(r * T, (r + 1) * T)
+        logs.write_tum(
+            os.path.join(args.log_dir, f"robot{r}", "distributed",
+                         f"kimera_distributed_poses_tum_{dump_idx}.tum"),
+            world.timestamps[r], t_all[sl], q_all[sl])
+
+
+def write_logs(args, world, fe, params, weights, dpgo_rows, gt_mask=None,
+               final_idx=None):
     """The reference-schema log tree and `ape_robot<r>.csv` per robot;
     returns {robot: ApeResult}. A robot whose `gt_mask` entry is False has
-    no ground truth: its logs are written, its APE is not."""
+    no ground truth: its logs are written, its APE is not. The final
+    trajectory is kimera_distributed_poses_tum_<final_idx>.tum (default
+    gnc_rounds // dump_every + 1)."""
     import numpy as np
     import torch
 
@@ -675,7 +958,8 @@ def write_logs(args, world, fe, params, weights, dpgo_rows, gt_mask=None):
     q_loops = (lie.rot_to_quat(torch.from_numpy(np.stack(
         [np.asarray(lc.R, np.float32) for lc in fe.loops]))).numpy()
         if fe.loops else np.zeros((0, 4), np.float32))
-    final_idx = args.gnc_rounds // max(args.dump_every, 1) + 1
+    if final_idx is None:
+        final_idx = args.gnc_rounds // max(args.dump_every, 1) + 1
     results = {}
     for r in range(args.robots):
         rdir = os.path.join(args.log_dir, f"robot{r}")

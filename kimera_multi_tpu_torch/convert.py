@@ -124,6 +124,21 @@ def gnc_state_from_numpy(mu, weights, barc2, outer_iter,
                         np.asarray(outer_iter, np.int32))).to(device)
 
 
+
+def round_state_from_numpy(Y, active, mu, weights, barc2, outer_iter,
+                           round_idx, device="cuda"):
+    """The fields of the JAX package's `dist.rounds.RoundState` (its
+    GncState's fields flattened, as its checkpoints hold them) -> the
+    port's `RoundState`, whose round index is a Python int."""
+    from .dist.rounds import RoundState
+
+    return RoundState(
+        Y=torch.tensor(np.asarray(Y, np.float32), device=device),
+        active=torch.tensor(np.asarray(active, bool), device=device),
+        gnc_state=gnc_state_from_numpy(mu, weights, barc2, outer_iter,
+                                       device=device),
+        round_idx=int(np.asarray(round_idx)))
+
 _LOOP_INT_FIELDS = ("robot_a", "frame_a", "robot_b", "frame_b",
                     "mono_inliers", "stereo_inliers", "status")
 

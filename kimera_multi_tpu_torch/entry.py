@@ -1,4 +1,5 @@
-"""The flagship step as one call: a fused multi-robot SLAM step.
+"""The flagship step as one call: a fused multi-robot SLAM step, and the
+distributed dry run.
 
 `entry()` returns (slam_step, example_args), the JAX package's
 `__graft_entry__.entry` on the card: loop-closure candidate verification
@@ -7,6 +8,9 @@ RANSAC pose recovery) feeding one parallel lifted-RBCD round on a
 2-robot pose graph. The verification goes through the hand-written
 kernels: the pair top-2 (K1), the permuted sample gathers (K4, twice in
 each gate), the essential counts (K9) and the rigid counts (K8).
+
+`dryrun_multichip(n)` runs the four distributed stages of the JAX
+package's `__graft_entry__.dryrun_multichip` over a robot group of n ranks.
 """
 
 from __future__ import annotations
@@ -100,3 +104,102 @@ def entry(device=None):
 
     example_args = (Y0,) + _make_verify_inputs(device=dev)
     return slam_step, example_args
+
+
+def dryrun_multichip(n_devices: int, device=None) -> dict:
+    """One FULL distributed round over a robot group of `n_devices` ranks
+    (the JAX package's `__graft_entry__.dryrun_multichip`): with 1, a
+    one-rank group made here (dist/mesh.py); with more, the default
+    process group, which must have that many ranks (torchrun, or spawned
+    processes). Certifies the four distributed stages:
+
+      1. the batched front-end's DETECT (BoW vectors, detection loop);
+      2. hypothesis-split 3d-3d RANSAC verification (dist/sharded_verify,
+         64 hypotheses a rank; K4 and K8 on the card);
+      3. one bucketed lifted-RBCD round with one robot a rank (all_gather
+         separator exchange, replicated global step, GNC);
+      4. one chain-sharded translation solve (dist/chain, 4 poses a
+         rank).
+
+    Prints one line per stage and returns their results."""
+    from .dist import chain as chain_mod, mesh, rounds, sharded_verify
+    from .frontend import batched as batched_mod, vocab
+    from .frontend.dlc import FrontendConfig
+    from .io import sim_world
+
+    dev = (backend.default_device() if device is None
+           else backend.resolve_device(device))
+    out = {}
+    # ---- stage 1: batched detect -----------------------------------------
+    R_fleet, T, K = min(n_devices, 4), 8, 32
+    world = sim_world.make_world(n_robots=R_fleet, n_steps=T,
+                                 features_per_kf=K, n_places=6, seed=2)
+    voc = vocab.build_vocabulary(world.descriptors.reshape(-1, 32)[:256],
+                                 k=4, depth=2, device=dev)
+    fe = batched_mod.BatchedFrontend(R_fleet, T, voc,
+                                     FrontendConfig(bow_capacity=32),
+                                     device=dev)
+    rr, _kk, _tt, _mm = fe.detect_candidates(world.descriptors,
+                                             world.obs_valid)
+    out["n_detected"] = len(rr)
+    print(f"dryrun[1/4] batched detect: {len(rr)} candidates ({R_fleet} "
+          f"robots x {T} keyframes)")
+
+    with mesh.robot_group(n_devices, dev) as group:
+        if group.world != n_devices:
+            raise RuntimeError(f"dryrun_multichip({n_devices}): the process "
+                               f"group has {group.world} ranks")
+        # ---- stage 2: hypothesis-split verification -----------------------
+        n_hyp = 64 * n_devices
+        npr = np.random.default_rng(3)
+        P = npr.uniform(-2, 2, (K, 3)).astype(np.float32)
+        Q = P + npr.normal(0, 0.01, (K, 3)).astype(np.float32)
+        soa = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+            a.T[None])).to(dev)
+        res = sharded_verify.make_sharded_arun(group, n_hyp=n_hyp)(
+            rng.base_key(5, device=dev)[None], soa(P), soa(Q),
+            torch.ones((1, K), dtype=torch.bool, device=dev))
+        out.update(n_inliers=int(res["n_inliers"][0]), ok=bool(res["ok"][0]))
+        print(f"dryrun[2/4] sharded verify: {n_hyp} hypotheses over "
+              f"{n_devices} ranks -> {out['n_inliers']} inliers, "
+              f"ok={out['ok']}")
+
+        # ---- stage 3: one robot-sharded bucketed RBCD round ---------------
+        g = multi_robot_graph(seed=1, n_robots=n_devices, n_poses=8,
+                              outlier_ratio=0.2, n_intra_lc=2, n_inter_lc=3,
+                              device=dev)
+        params0 = pgo.init_from_odometry(g.edges, g.n_robots,
+                                         g.poses_per_robot)
+        ylift = stiefel.random_lifting_matrix(
+            rng.derive(rng.base_key(0, device=dev), rng.Stream.LIFTING),
+            5, 3)
+        Y0 = rbcd.lift_params(params0, ylift, g.n_robots, g.poses_per_robot)
+        round_fn = rounds.make_round_fn(
+            group, g.edges, g.poses_per_robot,
+            rbcd.RbcdConfig(inner_iters=1, cg_iters=5),
+            weight_update_every=1)
+        state = rounds.init_state(
+            Y0, torch.ones(n_devices, dtype=torch.bool, device=dev),
+            g.edges, g.poses_per_robot)
+        state, cost = round_fn(state)
+        out["round_cost"] = float(cost)
+        print(f"dryrun[3/4] rbcd round ({n_devices} robot ranks): cost = "
+              f"{out['round_cost']:.3f}")
+
+        # ---- stage 4: chain-sharded translation solve ---------------------
+        n_poses = 4 * n_devices
+        solve = chain_mod.make_chain_translation_solver(
+            group, n_poses=n_poses, lc_capacity=4, cg_iters=20)
+        on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        t_sol = solve(
+            on(npr.normal(0, 0.1, (n_poses, 3)).astype(np.float32)),
+            on(np.asarray([0, n_poses // 2, -1, -1], np.int32)),
+            on(np.asarray([n_poses - 1, n_poses - 2, 0, 0], np.int32)),
+            on(npr.normal(0, 0.1, (4, 3)).astype(np.float32)),
+            on(np.ones(4, np.float32)))
+        out["chain_t_max"] = float(t_sol.abs().max())
+        print(f"dryrun[4/4] chain solve: {n_poses} poses over {n_devices} "
+              f"ranks, |t|_max = {out['chain_t_max']:.3f}")
+    print(f"dryrun_multichip({n_devices}): all 4 stages OK (round cost = "
+          f"{out['round_cost']:.3f})")
+    return out

@@ -9,8 +9,10 @@ of the source and its flags (`nvcc_flags`). All sources are compiled at
 once, one `nvcc` process each. A failed build raises with the compiler's
 output; nothing falls back to another path.
 
-`host_fn` builds host code the same way, with the system C compiler
-(`cc`) instead of `nvcc`: `io/csrc/png.c`, the PNG row filters.
+`host_lib` / `host_fn` build host code the same way, with the system C
+or C++ compiler (`cc`, `c++`) instead of `nvcc`: `io/csrc/png.c`, the PNG
+row filters, and `io/csrc/kmt_native.cpp`, the native wire codec and TCP
+transport of the pod tier (io/native.py).
 
 `launches` counts, per kernel, how often a wrapper launched it. `empty`
 (csrc/gather.cu, a kernel that does nothing) is launched only to measure
@@ -51,9 +53,10 @@ SOURCE_FLAGS = {
     "fivept.cu": ["-fmad=true"],
 }
 
-# host C sources (no CUDA), compiled by `cc`
+# host sources (no CUDA): C compiled by `cc`, C++ by `c++`
 HOST_CSRC_DIR = os.path.join(_PKG, "io", "csrc")
 HOST_FLAGS = ["-O2", "-std=c99", "-shared", "-fPIC"]
+HOST_CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -203,30 +206,53 @@ def check_cuda(name: str, t, dtype, shape=None) -> None:
                 f"{name}: expected shape {shape}, got {tuple(t.shape)}")
 
 
-def host_fn(src: str, name: str, argtypes: list):
-    """The C function `name` of the host source `io/csrc/<src>`, compiled
-    at first use by the system C compiler into BUILD_DIR (keyed by a hash
-    of the source and HOST_FLAGS) and loaded with ctypes. Raises where
-    there is no C compiler or the build fails."""
-    if name in _fns:
-        return _fns[name]
+def host_flags(src: str) -> list:
+    """The compiler flags of the host source `src`."""
+    return HOST_CXX_FLAGS if src.endswith(".cpp") else HOST_FLAGS
+
+
+_host_libs: dict = {}
+
+
+def host_lib(src: str):
+    """The library of the host source `io/csrc/<src>`, compiled at first
+    use by the system C (`.c`) or C++ (`.cpp`) compiler into BUILD_DIR
+    (keyed by a hash of the source and its flags; written to a temporary
+    file and renamed, so processes building together do not clash) and
+    loaded with ctypes. Raises where there is no compiler or the build
+    fails."""
+    if src in _host_libs:
+        return _host_libs[src]
     path = os.path.join(HOST_CSRC_DIR, src)
+    flags = host_flags(src)
     with open(path, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode())
+        h = hashlib.sha256(f.read() + " ".join(flags).encode())
     out = os.path.join(BUILD_DIR, f"libkmt_{os.path.splitext(src)[0]}_"
                                   f"{h.hexdigest()[:16]}.so")
     if not os.path.exists(out):
-        cc = shutil.which("cc") or shutil.which("gcc")
+        names = ("c++", "g++") if src.endswith(".cpp") else ("cc", "gcc")
+        cc = next((w for w in map(shutil.which, names) if w), None)
         if cc is None:
-            raise RuntimeError(f"no C compiler (cc) found to build {path}")
+            raise RuntimeError(f"no compiler ({names[0]}) found to build "
+                               f"{path}")
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        p = subprocess.run([cc, *HOST_FLAGS, "-o", tmp, path],
+        p = subprocess.run([cc, *flags, "-o", tmp, path],
                            capture_output=True, text=True)
         if p.returncode != 0:
-            raise RuntimeError(f"cc failed on {path}:\n{p.stdout}{p.stderr}")
+            raise RuntimeError(f"{cc} failed on {path}:\n{p.stdout}"
+                               f"{p.stderr}")
         os.replace(tmp, out)
-    fn = getattr(ctypes.CDLL(out), name)
+    _host_libs[src] = lib = ctypes.CDLL(out)
+    return lib
+
+
+def host_fn(src: str, name: str, argtypes: list):
+    """The C function `name` (returning int) of the host source
+    `io/csrc/<src>` (`host_lib`)."""
+    if name in _fns:
+        return _fns[name]
+    fn = getattr(host_lib(src), name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     _fns[name] = fn
     return fn

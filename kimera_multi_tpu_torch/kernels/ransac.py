@@ -150,7 +150,16 @@ def ransac_arun(key, p: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
     counts = score.rigid_counts(R_h.contiguous(), t_h.contiguous(), p, q,
                                 valid, threshold) * ok_h
     best = score.first_argmax(counts)
-    R_b, t_b = _take_best(R_h, best), _take_best(t_h, best)
+    return arun_consensus(p, q, valid, _take_best(R_h, best),
+                          _take_best(t_h, best), threshold, min_inliers,
+                          refine)
+
+
+def arun_consensus(p, q, valid, R_b, t_b, threshold: float,
+                   min_inliers: int, refine: bool = True):
+    """`ransac_arun`'s result from its winning model R_b (C, 3, 3), t_b
+    (C, 3): its inlier set, with `refine` a weighted re-solve on it, and
+    the inlier set and count of the re-solved model."""
 
     def _inliers(R_b, t_b):
         r = q - (mat3_mul(R_b, p) + t_b[:, :, None])  # (C, 3, K)

@@ -8,11 +8,11 @@ package's `build_pose_graph_from_loops` on the same loops, and its
 back-end against the JAX package's `init_from_odometry` + `robust_pgo`
 (12 GNC rounds, 8 Gauss-Newton x 40 CG steps) on the same loops,
 carried across as numpy rows (`convert.loops_to_numpy`). One submap run
-as tests/test_submap_e2e.py's (2 x 64, seed 7, submaps of 8), and the
-distributed modes and flags the port does not have yet (M11; the runs of
-`--artifacts`, `--frontend sequential` and `--lc-images` are in
-tests/test_torch_artifacts.py, test_torch_frontend_sequential.py and
-test_torch_forensics_tools.py).
+as tests/test_submap_e2e.py's (2 x 64, seed 7, submaps of 8), and a run
+the CLI refuses (the runs of `--artifacts`, `--frontend sequential` and
+`--lc-images` are in tests/test_torch_artifacts.py,
+test_torch_frontend_sequential.py and test_torch_forensics_tools.py; those
+of the sharded back-end in tests/test_torch_sharded_cli.py).
 
 Tolerances: the pose graph equal; loop closures under weight 0.5 equal;
 each robot's APE translation RMSE within 1e-3 m of the JAX back-end's
@@ -148,13 +148,7 @@ def test_sim_submaps(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--mode", "sim-sharded"], "M11"),
-    (["--mode", "euroc", "--euroc-roots", "x", "--backend", "sharded"],
-     "M11"),
-    (["--mode", "euroc"], "requires --euroc-roots"),
-    (["--backend", "sharded"], "M11"),
-    (["--checkpoint", "x"], "M11"), (["--resume", "x"], "M11"),
-    (["--profile", "x"], "M11"), (["--chain-refine"], "M11")])
+    (["--mode", "euroc"], "requires --euroc-roots")])
 def test_cli_refuses_what_is_not_ported(extra, item, tmp_path):
     with pytest.raises(SystemExit) as e:
         run.main(ARGS + ["--log-dir", str(tmp_path)] + extra)

@@ -4,9 +4,9 @@ tiny size, held to tests/test_vio_sim_e2e.py's gates (inter-robot loops,
 translation APE under 0.5 m, the log tree) and to the JAX package's CLI
 run with the same arguments, whose numbers are recorded below (the JAX
 CLI takes about two minutes on the CPU, mostly compiles, so it is not run
-here). Also the modes and flags of the vio-sim path that are not ported (M11;
-`--lc-images` and the ignored `--artifacts` run in
-tests/test_torch_forensics_tools.py).
+here). `--lc-images` and the ignored `--artifacts` run in
+tests/test_torch_forensics_tools.py, `--backend sharded` in
+tests/test_torch_sharded_cli.py.
 
 Tolerances: keyframe and loop counts equal to the JAX run's; each
 robot's APE translation RMSE within 0.15 m of JAX's (the JAX package's own
@@ -71,15 +71,6 @@ def test_vio_sim_run_end_to_end(tmp_path):
     # less than 2^22 (kernels/bow.py)
     assert 1.0 <= out["bow_weight_span"] < 2.0 ** 22
     assert len(out["stages"]["vio_frame_s"]) == 20
-
-
-@pytest.mark.parametrize("extra,item", [(["--backend", "sharded"], "M11")])
-def test_vio_sim_refuses_what_is_not_ported(extra, item, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        run.main(ARGS + ["--device", "cpu", "--log-dir", str(tmp_path)]
-                 + extra)
-    assert e.value.code != 0 and item in str(e.value.code)
-    assert not os.listdir(tmp_path)
 
 
 def test_vio_sim_runs_on_the_card_by_default(tmp_path):
